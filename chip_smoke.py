@@ -1,22 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's sampling path once on one CUDA card.
+"""Drive the PyTorch port's sampling and training paths once on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. the card (nvidia-smi name and power limit, torch's device name);
-  2. build the CUDA kernels from pggan_tpu_torch/csrc with nvcc (timed);
-  3. each kernel against its plain PyTorch version on the card, f32 and
-     bf16, at the sampling path's shapes and at ragged ones;
-  4. the slice at the full width of configs.yaml: write a scale-6 (256×256)
-     G checkpoint in the JAX package's npz format (numpy-seeded weights,
-     alpha 0.5), run `pggan_tpu_torch.demo` for 32 images at batch 16, check
-     the JPEGs and the kernel launch counts (2 pixel_norm and 13
+  2. build the CUDA kernels from pggan_tpu_torch/csrc with nvcc, one
+     process per source, all at once (timed);
+  3. each forward kernel against its plain PyTorch version on the card, f32
+     and bf16, at the sampling path's shapes and at ragged ones;
+  4. the sampling slice at the full width of configs.yaml: write a scale-6
+     (256×256) G checkpoint in the JAX package's npz format (numpy-seeded
+     weights, alpha 0.5), run `pggan_tpu_torch.demo` for 32 images at batch
+     16, check the JPEGs and the kernel launch counts (2 pixel_norm and 13
      lrelu_pixel_norm per forward);
   5. the full-width forward with the kernels against the same forward with
      the plain versions, and a small generator on the card against the CPU;
   6. times on the card: sampling img/s, each kernel against its plain
-     version, the fused upscale+conv against conv(upscale2d(x)), peak memory.
+     version, the fused upscale+conv against conv(upscale2d(x)), peak memory;
+  7. the backward kernel of lrelu_pixel_norm and the minibatch-stddev kernel
+     against their plain versions, f32 and bf16, at the train path's shapes
+     and ragged ones, and the first and second derivatives of the
+     minibatch-stddev autograd rule against autograd of its plain version;
+  8. the training slice through its entry point: a JAX-format G+D checkpoint
+     (params and a fresh Adam state) at scale 6, full width, resumed by
+     `pggan_tpu_torch.train.main` for a few r1 steps at batch 16 in bf16 on
+     synthetic data, a checkpoint cycle included; checks the loss lines, that
+     G and D moved, the checkpoints' JAX key sets and the launches per step
+     (4 pixel_norm, 26 lrelu_pixel_norm, 13 backward, 3 minibatch-stddev);
+  9. one f32 step (TF32 off) at full width with the kernels against the same
+     step with the plain versions, from the same state and latents: losses
+     and Adam's first moments (= the gradients, β1 = 0);
+ 10. times on the card: the R1 step and the step without R1, each in bf16,
+     f32 with TF32 off and f32 with TF32 on; peak memory; the new kernels
+     against their plain versions; pixel_norm against F.rms_norm.
 
 The second-to-last lines are a JSON object describing the kernels and the
 card's name and power limit; the last line is
@@ -27,6 +44,8 @@ Exits non-zero without a CUDA device, and imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
+import io
 import json
 import os
 import subprocess
@@ -40,6 +59,8 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH, SCALE, ALPHA = 16, 6, 0.5
+RES = 4 * 2 ** SCALE
+DEVICE = "cuda"
 # f32: kernel and plain differ only in the order of the channel sum and in
 # rsqrtf's last bits. bf16: additionally one bf16 rounding of the output,
 # which can land one bf16 ulp (2^-8 relative) apart.
@@ -48,6 +69,26 @@ TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6),
 # Whole forward, f32 with TF32 off: kernel-level differences of ~1e-7
 # relative, carried through 13 convolutions, on outputs of magnitude ~1-5.
 FORWARD_ATOL = 1e-4
+# The backward kernel sums two products per row where the plain version
+# sums one each, and the result can cancel to ~0: f32 atol 1e-5 on values of
+# order 1. bf16 as the forward (one bf16 rounding of the output).
+BWD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+           torch.bfloat16: dict(rtol=1.6e-2, atol=1e-2)}
+# Minibatch-stddev: f32 output either way, sums in another order.
+MB_TOL = dict(rtol=1e-5, atol=1e-6)
+FORWARD_KERNELS = ("pixel_norm", "lrelu_pixel_norm")
+TRAIN_STEPS = 4            # steps of the training slice (phase 8)
+# One f32 step (TF32 off), kernel path vs plain path (phase 9): bounds on
+# the relative loss difference and on the gradient difference relative to
+# the largest gradient of each network. Measured on an H100 over two runs:
+# losses up to 2.1e-7, gradients up to 4.4e-4 — and the kernel path run
+# twice differs by up to 2.1e-7 and 2.6e-4, because cuDNN's backward
+# algorithms do not sum in a fixed order. The bounds leave about 4.5x
+# (gradients) and 50x (losses) over that.
+STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-5, 2e-3
+# H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s off
+# the tensor cores.
+HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -61,7 +102,7 @@ def check(cond: bool, message: str) -> None:
 
 def nhwc(shape, dtype, gen):
     """A random [B, C, H, W] channels_last (or [B, C]) tensor from an NHWC shape."""
-    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    x = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
     return x.permute(0, 3, 1, 2) if x.ndim == 4 else x
 
 
@@ -91,6 +132,15 @@ def plain_epilogues(kernels):
     with mock.patch.object(kernels, "pixel_norm", kernels.pixel_norm_plain), \
             mock.patch.object(kernels, "lrelu_pixel_norm",
                               kernels.lrelu_pixel_norm_plain):
+        yield
+
+
+@contextlib.contextmanager
+def plain_kernels(kernels):
+    """Route G's and D's kernel calls to the plain PyTorch versions, which
+    autograd differentiates itself (no kernel forward or backward)."""
+    with plain_epilogues(kernels), mock.patch.object(
+            kernels, "minibatch_stddev_stat", kernels.minibatch_stddev_stat_plain):
         yield
 
 
@@ -127,6 +177,47 @@ def numpy_generator_arrays(seed, latent_dim, depths, scale, output_dim=3):
     return arrays
 
 
+def numpy_discriminator_arrays(seed, depths, scale, input_dim=3):
+    """D weights in the JAX package's checkpoint layout, drawn as
+    `numpy_generator_arrays` draws G's."""
+    rng = np.random.default_rng(seed)
+
+    def conv(prefix, k, cin, cout):           # k = 0: a linear layer
+        fan_in = k * k * cin if k else cin
+        bound = 1.0 / np.sqrt(fan_in)
+        shape = (k, k, cin, cout) if k else (cin, cout)
+        return {f"{prefix}/w": rng.standard_normal(shape, dtype=np.float32),
+                f"{prefix}/b": rng.uniform(-bound, bound, cout).astype(np.float32),
+                f"{prefix}/scale": np.asarray(np.sqrt(2.0 / fan_in), np.float32)}
+
+    d0 = depths[0]
+    arrays = conv("fromrgb/0", 1, input_dim, d0)
+    arrays.update(conv("last_conv", 3, d0 + 1, d0))
+    arrays.update(conv("last_linear", 0, 16 * d0, d0))
+    arrays.update(conv("decision", 0, d0, 1))
+    for i in range(1, scale + 1):
+        arrays.update(conv(f"fromrgb/{i}", 1, input_dim, depths[i]))
+        arrays.update(conv(f"blocks/{i - 1}/conv0", 3, depths[i], depths[i]))
+        arrays.update(conv(f"blocks/{i - 1}/conv1", 3, depths[i], depths[i - 1]))
+    return arrays
+
+
+def fresh_adam_arrays(params):
+    """optax's Adam state before its first step, flattened as in a JAX
+    checkpoint."""
+    opt = {"0/count": np.asarray(0, np.int32)}
+    for moment in ("mu", "nu"):
+        opt.update({f"0/{moment}/{k}": np.zeros_like(v) for k, v in params.items()})
+    return opt
+
+
+def bound_ms(nbytes, flops):
+    """The least time the card could take: bytes over HBM bandwidth or f32
+    operations over the f32 peak, whichever is larger. Returns (ms, by)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
 def card_line() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -135,14 +226,14 @@ def card_line() -> str:
 
 
 def check_kernels(kernels, shapes, gen):
-    """Phase 3: every kernel against its plain version, f32 and bf16.
+    """Phase 3: every forward kernel against its plain version, f32 and bf16.
     Returns {kernel: {dtype: max |diff|}}."""
-    max_err = {name: {dt: 0.0 for dt in TOL} for name in kernels.launches}
+    max_err = {name: {dt: 0.0 for dt in TOL} for name in FORWARD_KERNELS}
     with torch.no_grad():
         for shape in shapes:
             for dt, tol in TOL.items():
                 x = nhwc(shape, dt, gen)
-                for name in kernels.launches:
+                for name in FORWARD_KERNELS:
                     got = getattr(kernels, name)(x)
                     want = getattr(kernels, name + "_plain")(x)
                     torch.cuda.synchronize()
@@ -176,7 +267,8 @@ def run_demo(demo, kernels, cfg, depths, tmp):
     launches = dict(kernels.launches)
     check(rc == 0, f"demo returned {rc}")
     forwards = n_samples // BATCH
-    want = {"pixel_norm": 2 * forwards, "lrelu_pixel_norm": 13 * forwards}
+    want = {"pixel_norm": 2 * forwards, "lrelu_pixel_norm": 13 * forwards,
+            "lrelu_pixel_norm_bwd": 0, "minibatch_stddev_stat": 0}
     check(launches == want, f"launches {launches}, expected {want}")
     files = sorted(os.listdir(out_dir))
     check(len(files) == n_samples, f"{len(files)} files written")
@@ -251,7 +343,7 @@ def time_kernels(kernels, path_shapes, gen, card):
     Returns {(kernel, shape, dtype): (kernel ms, plain ms)}."""
     times = {}
     timed = [("pixel_norm", (BATCH, 4, 4, 512))] + [
-        (name, shape) for name in kernels.launches
+        (name, shape) for name in FORWARD_KERNELS
         for shape in sorted(set(path_shapes), key=np.prod)[-3:]]
     for name, shape in timed:
         for dt in (torch.float32, torch.bfloat16):
@@ -296,6 +388,266 @@ def time_block_heads(generator, depths, gen, card):
                   f"conv(upscale2d) {plain_ms:.4f} ms (max |diff| {err:.3g}) ({card})")
 
 
+def check_train_kernels(kernels, path_shapes, gen):
+    """Phase 7: the backward kernel and the minibatch-stddev kernel against
+    their plain versions, and the minibatch-stddev rule's first and second
+    derivatives. Returns {kernel: {dtype: max |diff|}}."""
+    max_err = {name: {dt: 0.0 for dt in TOL}
+               for name in ("lrelu_pixel_norm_bwd", "minibatch_stddev_stat")}
+    bwd_shapes = sorted(set(path_shapes)) + [(2, 3, 3, 16), (2, 4, 4, 513),
+                                              (2, 4, 4, 96)]
+    mb_shapes = [((BATCH, 4, 4, 512), 4), ((2 * BATCH, 4, 4, 512), 4),
+                 ((6, 4, 4, 512), 6), ((2, 4, 4, 512), 2)]
+    with torch.no_grad():
+        for dt in TOL:
+            for shape in bwd_shapes:
+                x, g = nhwc(shape, dt, gen), nhwc(shape, dt, gen)
+                got = kernels.lrelu_pixel_norm_bwd(x, g)
+                want = kernels.lrelu_pixel_norm_bwd_plain(x, g)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, **BWD_TOL[dt], msg=lambda m: (
+                    f"lrelu_pixel_norm_bwd {shape} {dt}: {m}"))
+                check(got.is_contiguous(memory_format=torch.channels_last),
+                      f"lrelu_pixel_norm_bwd {shape}: layout")
+                err = float((got.float() - want.float()).abs().max())
+                max_err["lrelu_pixel_norm_bwd"][dt] = max(
+                    max_err["lrelu_pixel_norm_bwd"][dt], err)
+            for shape, sg in mb_shapes:
+                x = nhwc(shape, dt, gen)
+                got = kernels.minibatch_stddev_stat(x, sg)
+                want = kernels.minibatch_stddev_stat_plain(x, sg)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, **MB_TOL, msg=lambda m: (
+                    f"minibatch_stddev_stat {shape} sg {sg} {dt}: {m}"))
+                err = float((got - want).abs().max())
+                max_err["minibatch_stddev_stat"][dt] = max(
+                    max_err["minibatch_stddev_stat"][dt], err)
+    for name, errs in max_err.items():
+        shapes = bwd_shapes if name == "lrelu_pixel_norm_bwd" else mb_shapes
+        tol = BWD_TOL if name == "lrelu_pixel_norm_bwd" else {dt: MB_TOL for dt in TOL}
+        print(f"[7 kernels] {name}: {len(shapes)} shapes match the plain version; "
+              f"max |diff| f32 {errs[torch.float32]:.3g} ({tol[torch.float32]}), "
+              f"bf16 {errs[torch.bfloat16]:.3g} ({tol[torch.bfloat16]})")
+
+    # Derivatives: the rule's backward (torch ops) against autograd of the
+    # plain version, through R1's pattern grad(create_graph=True) then grad.
+    x = nhwc((BATCH, 4, 4, 512), torch.float32, gen).requires_grad_(True)
+    w = torch.randn((BATCH // 4,), generator=gen, device=DEVICE)
+    v = torch.randn(x.shape, generator=gen, device=DEVICE)
+    derivs = []
+    for fn in (kernels.minibatch_stddev_stat, kernels.minibatch_stddev_stat_plain):
+        (g1,) = torch.autograd.grad((fn(x, 4) * w).sum(), x, create_graph=True)
+        check(g1.requires_grad, "the first derivative is not differentiable")
+        (g2,) = torch.autograd.grad((g1 * v).sum(), x)
+        derivs.append((g1.detach(), g2))
+    (k1, k2), (p1, p2) = derivs
+    scale1, scale2 = float(p1.abs().max()), float(p2.abs().max())
+    err1, err2 = float((k1 - p1).abs().max()), float((k2 - p2).abs().max())
+    # Relative to the largest entry: the two differ in summation order and
+    # in the formula (the rule drops the mean's term, which is zero).
+    check(err1 <= 1e-4 * scale1 and err2 <= 1e-4 * scale2,
+          f"minibatch-stddev derivatives: |diff| {err1:.3g} of {scale1:.3g}, "
+          f"{err2:.3g} of {scale2:.3g}")
+    print(f"[7 kernels] minibatch_stddev_stat derivatives at {[BATCH, 4, 4, 512]} "
+          f"f32, rule vs autograd of plain: first max |diff| {err1:.3g} (largest "
+          f"entry {scale1:.3g}), second {err2:.3g} (largest {scale2:.3g}); bound "
+          f"1e-4 of the largest entry")
+    return max_err
+
+
+def train_checkpoint(ckpt_lib, cfg, depths, tmp):
+    """A JAX-format G+D checkpoint at scale 6, full width, numpy-seeded
+    weights and a fresh Adam state; the schedule inside scale 6 at alpha
+    0.5 with no jump within the run. Returns (args, G arrays, D arrays,
+    start step)."""
+    arrays_g = numpy_generator_arrays(1234, int(cfg.latent_dim), depths, SCALE)
+    arrays_d = numpy_discriminator_arrays(4321, depths, SCALE)
+    args = cfg.to_dict()
+    args.update(batch_per_gpu=BATCH, loss_cycle=1, ckpt_cycle=2,
+                data_backend="synthetic", use_validation=False, fid_cycle=0,
+                loss_mode="r1", r1_interval=1, compute_dtype="float32",
+                save_root=tmp)
+    scale_end = sum(int(n) for n in args["max_step_at_scale"][:SCALE + 1])
+    scale_start = scale_end - int(args["max_step_at_scale"][SCALE])
+    # alpha reached 0.5 at its 200th of 400 jumps, 100 steps apart
+    start = scale_start + int(args["alpha_jump_start"][SCALE]) + 199 * 100 + 50
+    schedule = {"scale_index": SCALE, "alpha": ALPHA, "alpha_index": 200,
+                "alpha_jump_value": 1.0 / 400, "next_scale_jump_step": scale_end,
+                "next_alpha_jump_step": start + 50}
+    for name, arrays in (("G", arrays_g), ("D", arrays_d)):
+        ckpt_lib.save_checkpoint(tmp, "smoke_init", name, start, params=arrays,
+                                 opt=fresh_adam_arrays(arrays),
+                                 meta={"args": args, "schedule": schedule})
+    return args, arrays_g, arrays_d, start
+
+
+def run_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp):
+    """Phase 8: the training slice through `pggan_tpu_torch.train.main`.
+    Returns (launches of the run, args, G arrays, D arrays)."""
+    args, arrays_g, arrays_d, start = train_checkpoint(ckpt_lib, cfg, depths, tmp)
+    config = os.path.join(tmp, "smoke_train.yaml")
+    with open(config, "w") as f:
+        json.dump({"save_root": tmp}, f)            # JSON is YAML
+    end = start + TRAIN_STEPS
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train_mod.main(["smoke_train", "--config", config, "--ckpt_id",
+                             "smoke_init", "--max_step", str(end), "--compute_dtype",
+                             "bfloat16", "--device", DEVICE])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"[8 train]   {line}")
+    check(rc == 0, f"train main returned {rc}")
+    losses = [line for line in lines if line.startswith("lossD:")]
+    check(len(losses) == TRAIN_STEPS, f"{len(losses)} loss lines")
+    for line in losses:
+        d, g = line.replace("lossD:", "").split("| lossG:")
+        check(np.isfinite(float(d)) and np.isfinite(float(g)), f"loss line {line!r}")
+    per_step = {"pixel_norm": 4, "lrelu_pixel_norm": 26, "lrelu_pixel_norm_bwd": 13,
+                "minibatch_stddev_stat": 3}
+    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    check(launches == want, f"launches {launches}, expected {want}")
+    ckpt_steps = sorted(int(f.split("_")[1][:-4]) for f in os.listdir(
+        ckpt_lib.ckpt_dir(tmp, "smoke_train")) if f.startswith("G_") and "latest" not in f)
+    check(ckpt_steps == [start + 2, end], f"checkpoint steps {ckpt_steps}")
+    for name, before in (("G", arrays_g), ("D", arrays_d)):
+        params, opt, meta = ckpt_lib.load_checkpoint(tmp, "smoke_train", name, end)
+        check(set(params) == set(before), f"{name}: params key set")
+        check(set(opt) == set(fresh_adam_arrays(before)), f"{name}: opt key set")
+        check(int(opt["0/count"]) == TRAIN_STEPS, f"{name}: Adam count {opt['0/count']}")
+        moved = sum(not np.array_equal(params[k], before[k]) for k in before
+                    if not k.endswith("/scale"))
+        check(moved > 0, f"{name} did not move")
+        check(meta["args"]["compute_dtype"] == "bfloat16", f"{name}: args")
+    print(f"[8 train] pggan_tpu_torch.train.main resumed a JAX-format scale-{SCALE} "
+          f"checkpoint at step {start} and ran {TRAIN_STEPS} r1 steps at {RES}x{RES}, "
+          f"batch {BATCH}, bf16, in {train_s:.2f} s (checkpoint load, data, steps, "
+          f"checkpoints at {ckpt_steps}); G and D moved; launches {launches} = "
+          f"{TRAIN_STEPS} steps x {per_step}")
+    return launches, args, arrays_g, arrays_d
+
+
+def train_state(step_mod, cfg, arrays_g, arrays_d):
+    from pggan_tpu_torch.models import discriminator, generator
+    G = generator.params_from_jax(arrays_g).to(DEVICE)
+    D = discriminator.params_from_jax(arrays_d).to(DEVICE)
+    return step_mod.init_train_state(cfg, G, D, torch.Generator(device=DEVICE).manual_seed(0))
+
+
+def compare_step(step_mod, kernels, equalized, cfg, arrays_g, arrays_d, gen):
+    """Phase 9: one f32 step (TF32 off) with the kernels and one with the
+    plain versions, from the same state, batch and latents."""
+    batch = torch.randint(0, 256, (BATCH, RES, RES, 3), generator=gen, device=DEVICE,
+                          dtype=torch.uint8)
+    z1 = torch.randn((BATCH, int(cfg.latent_dim)), generator=gen, device=DEVICE)
+    z2 = torch.randn((BATCH, int(cfg.latent_dim)), generator=gen, device=DEVICE)
+    step = step_mod.make_train_step(cfg, SCALE)
+    runs = {}
+    # the kernel path twice: the spread of cuDNN's own run-to-run differences
+    for label, plain in (("kernel", False), ("plain", True), ("kernel again", False)):
+        state = train_state(step_mod, cfg, arrays_g, arrays_d)
+        with plain_kernels(kernels) if plain else contextlib.nullcontext():
+            metrics = step(state, batch, ALPHA, z1=z1, z2=z2)
+        runs[label] = ({k: float(v) for k, v in metrics.items()},
+                       {n: equalized.adam_state_to_jax(o, net) for n, net, o in
+                        (("D", state.D, state.opt_D), ("G", state.G, state.opt_G))})
+    print(f"[9 step] f32 TF32 off, {RES}x{RES} batch {BATCH}: kernel path losses "
+          f"{ {k: round(v, 6) for k, v in runs['kernel'][0].items()} }")
+
+    def differences(a, b):
+        (m_a, mom_a), (m_b, mom_b) = runs[a], runs[b]
+        loss = max(abs(m_a[k] - m_b[k]) / max(abs(m_b[k]), 1e-12) for k in m_b)
+        grads = {}
+        for net in ("D", "G"):
+            keys = [k for k in mom_b[net] if k.startswith("0/mu/")]
+            largest = max(float(np.abs(mom_b[net][k]).max()) for k in keys)
+            diff = max(float(np.abs(mom_a[net][k] - mom_b[net][k]).max()) for k in keys)
+            grads[net] = diff / largest
+        print(f"[9 step] {a} vs {b}: largest relative loss difference {loss:.3g}; "
+              f"gradient (Adam mu, beta1 = 0) max |diff| over the largest |g|: "
+              f"D {grads['D']:.3g}, G {grads['G']:.3g}")
+        return loss, max(grads.values())
+    loss_rel, grad_rel = differences("kernel", "plain")
+    differences("kernel again", "kernel")
+    check(loss_rel <= STEP_LOSS_RTOL, f"loss difference {loss_rel:.3g}")
+    check(grad_rel <= STEP_GRAD_RTOL, f"gradient difference {grad_rel:.3g}")
+    print(f"[9 step] bounds: losses rtol {STEP_LOSS_RTOL}, gradients "
+          f"{STEP_GRAD_RTOL} of the largest gradient of each network")
+
+
+def time_train(step_mod, kernels, cfg, arrays_g, arrays_d, gen, card):
+    """Phase 10a: step ms, img/s and peak memory of the R1 step and of the
+    step without R1, in bf16, f32 with TF32 off and f32 with TF32 on."""
+    batch = torch.randint(0, 256, (BATCH, RES, RES, 3), generator=gen, device=DEVICE,
+                          dtype=torch.uint8)
+    for label, dtype, tf32 in (("bf16", "bfloat16", False),
+                               ("f32 TF32 off", "float32", False),
+                               ("f32 TF32 on", "float32", True)):
+        run_cfg = copy.deepcopy(cfg)
+        run_cfg["compute_dtype"] = dtype
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        state = train_state(step_mod, run_cfg, arrays_g, arrays_d)
+        for r1 in (True, False):
+            step = step_mod.make_train_step(run_cfg, SCALE, include_r1=r1)
+            for _ in range(2):
+                step(state, batch, ALPHA)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            n = 5
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step(state, batch, ALPHA)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / n * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            print(f"[10 times] train step {RES}x{RES} batch {BATCH} {label}, "
+                  f"{'R1' if r1 else 'no R1 (lazy-window tail)'}: {ms:.2f} ms = "
+                  f"{BATCH / ms * 1e3:.1f} img/s; peak memory {peak:.0f} MiB "
+                  f"(host clock over {n} steps after 2 warm-up) ({card})")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def time_train_kernels(kernels, gen, card):
+    """Phase 10b: the new kernels at their largest path shapes against their
+    plain versions, and pixel_norm against F.rms_norm (the one PyTorch call
+    that computes the same function; no call computes the other three).
+    Returns {(kernel, dtype): (kernel ms, plain ms)} and rms_norm's ms."""
+    import torch.nn.functional as F
+
+    times = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x, g = nhwc((BATCH, 256, 256, 64), dt, gen), nhwc((BATCH, 256, 256, 64), dt, gen)
+        plain_ms, kernel_ms = abba_ms(lambda: kernels.lrelu_pixel_norm_bwd_plain(x, g),
+                                      lambda: kernels.lrelu_pixel_norm_bwd(x, g))
+        times[("lrelu_pixel_norm_bwd", dt)] = (kernel_ms, plain_ms)
+        gbps = 3 * x.numel() * x.element_size() / (kernel_ms * 1e-3) / 1e9
+        print(f"[10 times] lrelu_pixel_norm_bwd [16,256,256,64] {str(dt)[6:]}: kernel "
+              f"{kernel_ms:.4f} ms ({gbps:.0f} GB/s of two reads + one write), plain "
+              f"{plain_ms:.4f} ms ({card})")
+        m = nhwc((BATCH, 4, 4, 512), dt, gen)
+        plain_ms, kernel_ms = abba_ms(lambda: kernels.minibatch_stddev_stat_plain(m, 4),
+                                      lambda: kernels.minibatch_stddev_stat(m, 4))
+        times[("minibatch_stddev_stat", dt)] = (kernel_ms, plain_ms)
+        print(f"[10 times] minibatch_stddev_stat [16,4,4,512] sg 4 {str(dt)[6:]}: "
+              f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms ({card})")
+    x = nhwc((BATCH, 4, 4, 512), torch.float32, gen)
+    x_rows = x.permute(0, 2, 3, 1)
+    with torch.no_grad():
+        err = float((F.rms_norm(x_rows, [512], eps=1e-8).permute(0, 3, 1, 2)
+                     - kernels.pixel_norm(x)).abs().max())
+    rms_ms = time_ms(lambda: F.rms_norm(x_rows, [512], eps=1e-8))
+    print(f"[10 times] F.rms_norm [16,4,4,512] f32 (pixel_norm's function; max |diff| "
+          f"to the kernel {err:.3g}): {rms_ms:.4f} ms ({card})")
+    return times, rms_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -319,8 +671,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.load_library()
-    print(f"[2 build] {os.path.relpath(_build.library_path(), REPO)} ready in "
-          f"{time.perf_counter() - t0:.2f} s")
+    libs = [os.path.relpath(so, REPO) for so in _build.library_paths().values()]
+    print(f"[2 build] {', '.join(libs)} ready in {time.perf_counter() - t0:.2f} s "
+          f"(one nvcc per source, started together)")
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line:
             print(f"[2 build]   {line.strip()}")
@@ -332,7 +685,7 @@ def main() -> int:
     path_shapes = epilogue_shapes(depths, SCALE, BATCH)
     shapes = [(BATCH, 512)] + sorted(set(path_shapes)) + [
         (2, 3, 3, 16), (2, 4, 4, 513), (2, 4, 4, 96)]
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
     max_err = check_kernels(kernels, shapes, gen)
     for name, errs in max_err.items():
         print(f"[3 kernels] {name}: {len(shapes)} shapes match the plain version; "
@@ -340,9 +693,9 @@ def main() -> int:
               f"bf16 {errs[torch.bfloat16]:.3g} (rtol 1.6e-2, atol 1e-2)")
 
     with tempfile.TemporaryDirectory(prefix="pggan_smoke_") as tmp:
-        launches = run_demo(demo, kernels, cfg, depths, tmp)
-        generator, _, _, alpha = demo.load_generator(tmp, "smoke", device="cuda")
-    z = torch.randn((BATCH, int(cfg.latent_dim)), generator=gen, device="cuda")
+        run_demo(demo, kernels, cfg, depths, tmp)
+        generator, _, _, alpha = demo.load_generator(tmp, "smoke", device=DEVICE)
+    z = torch.randn((BATCH, int(cfg.latent_dim)), generator=gen, device=DEVICE)
     check_forward(kernels, generator, z, alpha)
 
     print(f"[6 times] card: {card}; CUDA events, mean over 20 calls (10 for a "
@@ -352,19 +705,52 @@ def main() -> int:
         times = time_kernels(kernels, path_shapes, gen, card)
         time_block_heads(generator, depths, gen, card)
 
-    # The kernels on the path, timed at their largest f32 shape on the path
-    # (the demo samples in f32).
-    main_path = {"pixel_norm": ((BATCH, 4, 4, 512), "pggan_tpu/ops/pallas_kernels.py:57"),
-                 "lrelu_pixel_norm": ((BATCH, 256, 256, 64),
-                                      "pggan_tpu/ops/pallas_kernels.py:179")}
+    # ---- the training slice ----
+    from pggan_tpu_torch import train as train_mod
+    from pggan_tpu_torch.ops import equalized
+    from pggan_tpu_torch.train import step as step_mod
+    from pggan_tpu_torch.utils import checkpoint as ckpt_lib
+
+    max_err.update(check_train_kernels(kernels, path_shapes, gen))
+    with tempfile.TemporaryDirectory(prefix="pggan_smoke_train_") as tmp:
+        train_launches, args, arrays_g, arrays_d = run_train(
+            train_mod, kernels, ckpt_lib, cfg, depths, tmp)
+    step_cfg = Config(args)
+    step_cfg["compute_dtype"] = "float32"
+    compare_step(step_mod, kernels, equalized, step_cfg, arrays_g, arrays_d, gen)
+    print(f"[10 times] card: {card}")
+    time_train(step_mod, kernels, step_cfg, arrays_g, arrays_d, gen, card)
+    train_times, rms_ms = time_train_kernels(kernels, gen, card)
+
+    # Every kernel of the two paths at its largest f32 shape on them;
+    # `launches` is the training run's count (the demo's is checked in
+    # phase 4). Bounds: each input read once and each output written once
+    # at 3.35 TB/s, against a few f32 operations per element at 67 TFLOP/s.
+    rows, big = (BATCH, 4, 4, 512), (BATCH, 256, 256, 64)
+    n_rows, n_big = int(np.prod(rows)), int(np.prod(big))
+    entries = [
+        ("pixel_norm", "norm_kernels.cu", ":57", rows,
+         times[("pixel_norm", rows, torch.float32)], 2 * n_rows * 4, 3 * n_rows, rms_ms),
+        ("lrelu_pixel_norm", "norm_kernels.cu", ":179", big,
+         times[("lrelu_pixel_norm", big, torch.float32)], 2 * n_big * 4, 4 * n_big, None),
+        ("lrelu_pixel_norm_bwd", "norm_kernels.cu", ":186", big,
+         train_times[("lrelu_pixel_norm_bwd", torch.float32)], 3 * n_big * 4,
+         12 * n_big, None),
+        ("minibatch_stddev_stat", "mb_stddev.cu", ":252", rows,
+         train_times[("minibatch_stddev_stat", torch.float32)],
+         n_rows * 4 + BATCH // 4 * 4, 6 * n_rows, None),
+    ]
     report = []
-    for name, (shape, replaces) in main_path.items():
-        kernel_ms, plain_ms = times[(name, shape, torch.float32)]
+    for name, source, line, shape, (kernel_ms, plain_ms), nbytes, flops, lib_ms in entries:
+        b_ms, b_by = bound_ms(nbytes, flops)
         report.append({"name": name, "route": "cuda",
-                       "source": "pggan_tpu_torch/csrc/norm_kernels.cu",
-                       "replaces": replaces, "launches": launches[name],
+                       "source": f"pggan_tpu_torch/csrc/{source}",
+                       "replaces": f"pggan_tpu/ops/pallas_kernels.py{line}",
+                       "launches": train_launches[name],
                        "max_abs_err": max_err[name][torch.float32],
-                       "ms": kernel_ms, "plain_ms": plain_ms})
+                       "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "library_ms": lib_ms,
+                       "shape": list(shape), "dtype": "float32"})
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

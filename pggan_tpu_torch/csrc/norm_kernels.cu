@@ -1,22 +1,27 @@
 // Row-wise pixel normalisation kernels for Hopper (sm_90a), CUDA C++.
 //
-// Replaces the two Pallas TPU kernels of the generator's forward pass:
+// Replaces three Pallas TPU kernels of the generator:
 //   pixel_norm_fwd        <- pggan_tpu/ops/pallas_kernels.py `_pixel_norm_kernel`
 //                            (reached through `pixel_norm`)
 //   lrelu_pixel_norm_fwd  <- pggan_tpu/ops/pallas_kernels.py `_lrelu_pn_fwd_kernel`
 //                            (reached through `lrelu_pixel_norm` / `_lrelu_pn_call`)
+//   lrelu_pixel_norm_bwd  <- pggan_tpu/ops/pallas_kernels.py `_lrelu_pn_bwd_kernel`
+//                            (reached through `_lrelu_pn_bwd_rule` / `_lrelu_pn_call`)
 //
-// Both read a row-major [rows, cols] view of channel-last memory (NHWC, i.e.
-// a channels_last NCHW tensor, or a contiguous [B, C] latent) and compute, per
-// row, y = z * rsqrt(mean(z^2) + eps) with z = x (pixel_norm) or
-// z = leaky_relu(x, slope) (lrelu_pixel_norm). Math is f32; the output has the
-// input's type (f32 or bf16).
+// All read a row-major [rows, cols] view of channel-last memory (NHWC, i.e.
+// a channels_last NCHW tensor, or a contiguous [B, C] latent). The forwards
+// compute, per row, y = z * rsqrt(mean(z^2) + eps) with z = x (pixel_norm) or
+// z = leaky_relu(x, slope) (lrelu_pixel_norm). The backward recomputes z and
+// inv = rsqrt(mean(z^2) + eps) from the saved x and, with the incoming
+// gradient g, writes dx = lrelu'(x) * (inv * g - z * inv^3 * mean(z * g)).
+// Math is f32; every tensor has one type (f32 or bf16).
 //
 // What bounds them on an H100: bytes. Each element is read, squared and summed,
-// then scaled and written: about one FLOP per byte, far below the card's
-// ridge point, so the floor is one read and one write of the activation from
-// device memory (the largest call at 256x256, batch 16, is [16*256*256, 64]:
-// 268 MB in and 268 MB out in f32).
+// then scaled and written: a few FLOPs per byte, far below the card's ridge
+// point, so the floor is one read and one write of the activation from device
+// memory (the largest call at 256x256, batch 16, is [16*256*256, 64]: 268 MB
+// in and 268 MB out in f32), and for the backward two reads (x, g) and one
+// write (dx).
 //
 // What the design does about it: one warp owns one row. Lanes read
 // neighbouring addresses (coalesced), the row's sum of squares is reduced
@@ -26,6 +31,9 @@
 // (ragged tails are handled by the strided loop) and any rows (a ragged last
 // block is masked by the row test) are accepted. Vector loads and several rows
 // per warp for small cols are left for later.
+//
+// The backward is the same design with two running sums (z*z and z*g) in the
+// first pass and the second pass re-reading both rows.
 //
 // Plain C interface for ctypes; each entry point returns cudaGetLastError()
 // (0 on success) after the launch on the caller's stream. Nothing here
@@ -89,15 +97,60 @@ norm_rows_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t rows,
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreadsPerBlock)
+lrelu_norm_rows_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                           T* __restrict__ dx, int64_t rows, int cols, float slope,
+                           float eps) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;  // whole warps leave, as in norm_rows_kernel
+  const T* xr = x + row * cols;
+  const T* gr = g + row * cols;
+  T* dr = dx + row * cols;
+
+  float sum_zz = 0.f;
+  float sum_zg = 0.f;
+  for (int c = lane; c < cols; c += 32) {
+    const float z = activate<true>(to_f32(xr[c]), slope);
+    sum_zz += z * z;
+    sum_zg += z * to_f32(gr[c]);
+  }
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    sum_zz += __shfl_xor_sync(0xffffffffu, sum_zz, offset);
+    sum_zg += __shfl_xor_sync(0xffffffffu, sum_zg, offset);
+  }
+  const float inv_cols = 1.f / static_cast<float>(cols);
+  const float inv = rsqrtf(sum_zz * inv_cols + eps);
+  const float k = inv * inv * inv * (sum_zg * inv_cols);
+
+  for (int c = lane; c < cols; c += 32) {
+    const float xv = to_f32(xr[c]);
+    const float z = activate<true>(xv, slope);
+    const float dz = inv * to_f32(gr[c]) - z * k;
+    dr[c] = from_f32<T>(xv >= 0.f ? dz : dz * slope);
+  }
+}
+
+// One warp per row, kWarpsPerBlock rows per block; fails on a grid that
+// does not fit.
+int row_grid(int64_t rows, int cols, dim3* grid) {
+  if (rows < 0 || cols <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  *grid = dim3(static_cast<unsigned int>(blocks));
+  return static_cast<int>(cudaSuccess);
+}
+
 // dtype: 0 = float32, 1 = bfloat16.
 template <bool kLrelu>
 int launch_norm_rows(const void* x, void* y, int64_t rows, int cols, int dtype,
                      float slope, float eps, void* stream) {
-  if (rows < 0 || cols <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid;
+  if (const int err = row_grid(rows, cols, &grid)) return err;
   if (rows == 0) return static_cast<int>(cudaSuccess);
-  const int64_t blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned int>(blocks));
   const dim3 block(kThreadsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
@@ -107,6 +160,28 @@ int launch_norm_rows(const void* x, void* y, int64_t rows, int cols, int dtype,
     norm_rows_kernel<__nv_bfloat16, kLrelu><<<grid, block, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), rows,
         cols, slope, eps);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_lrelu_norm_rows_bwd(const void* x, const void* g, void* dx, int64_t rows,
+                               int cols, int dtype, float slope, float eps,
+                               void* stream) {
+  dim3 grid;
+  if (const int err = row_grid(rows, cols, &grid)) return err;
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  const dim3 block(kThreadsPerBlock);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    lrelu_norm_rows_bwd_kernel<float><<<grid, block, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(g),
+        static_cast<float*>(dx), rows, cols, slope, eps);
+  } else if (dtype == 1) {
+    lrelu_norm_rows_bwd_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
+        static_cast<__nv_bfloat16*>(dx), rows, cols, slope, eps);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -125,6 +200,12 @@ int pggan_pixel_norm_fwd(const void* x, void* y, int64_t rows, int cols, int dty
 int pggan_lrelu_pixel_norm_fwd(const void* x, void* y, int64_t rows, int cols,
                                int dtype, float slope, float eps, void* stream) {
   return launch_norm_rows<true>(x, y, rows, cols, dtype, slope, eps, stream);
+}
+
+int pggan_lrelu_pixel_norm_bwd(const void* x, const void* g, void* dx, int64_t rows,
+                               int cols, int dtype, float slope, float eps,
+                               void* stream) {
+  return launch_lrelu_norm_rows_bwd(x, g, dx, rows, cols, dtype, slope, eps, stream);
 }
 
 const char* pggan_cuda_error_string(int code) {

@@ -27,7 +27,7 @@ from pggan_tpu_torch.utils.image import denorm_to_uint8, write_jpeg
 
 
 def load_generator(save_root: str, ckpt_id: str, ckpt_step: Optional[int] = None,
-                   *, ema: bool = False, device="cpu"
+                   *, ema: bool = False, device="cuda"
                    ) -> Tuple[Generator, Config, int, float]:
     """Rebuild G at the checkpointed scale from the checkpoint's own config
     and load its weights strictly (`demo.py:23-50`). `ema=True` loads the

@@ -15,7 +15,8 @@
       JAX package's layout).
 
 Activations inside are channels_last, so each epilogue hands the kernels
-NHWC rows. Growth appends a block and its toRGB; weights are drawn from a
+NHWC rows; under autograd the epilogues' backward is the backward kernel.
+Growth appends a block and its toRGB; weights are drawn from a
 `torch.Generator` seeded per component, so growing a generator of scale s
 gives the same weights as building one of scale s+1. The JAX package's
 packed high-resolution path (`hires_pack`) is not ported.
@@ -31,17 +32,20 @@ from torch import nn
 
 from pggan_tpu_torch.ops.basic import (blend, leaky_relu, lrelu_pixel_norm,
                                        pixel_norm, upscale2d)
-from pggan_tpu_torch.ops.equalized import EqualizedConv2d, EqualizedLinear
+from pggan_tpu_torch.ops.equalized import (NET_G, EqualizedConv2d,
+                                           EqualizedLinear, component_rng,
+                                           load_params_from_jax, params_to_jax)
 from pggan_tpu_torch.ops.fused_scale import upscale_conv3x3_dilated
-from pggan_tpu_torch.utils.checkpoint import check_key_set
+
+__all__ = ["Generator", "GeneratorBlock", "fuses_upscale", "load_params_from_jax",
+           "params_from_jax", "params_to_jax"]
 
 # Component ids of the per-component seeds (the same ids as the JAX package).
 _KEY_FORMAT, _KEY_FIRST, _KEY_BLOCK, _KEY_TORGB = 0, 1, 100, 200
 
 
 def _component_rng(seed: int, *component: int) -> torch.Generator:
-    state = np.random.SeedSequence([int(seed), *component]).generate_state(1)
-    return torch.Generator().manual_seed(int(state[0]))
+    return component_rng(seed, NET_G, *component)
 
 
 def fuses_upscale(fused_scale, cout: int) -> bool:
@@ -171,32 +175,6 @@ class Generator(nn.Module):
         elif self.last_activation == "sigmoid":
             out = torch.sigmoid(out)
         return out.permute(0, 2, 3, 1)
-
-    def jax_layers(self) -> Dict[str, nn.Module]:
-        """JAX pytree path prefix → layer, e.g. 'blocks/0/conv1'."""
-        return {name.replace(".", "/"): module
-                for name, module in self.named_modules()
-                if isinstance(module, (EqualizedConv2d, EqualizedLinear))}
-
-
-def params_to_jax(module: Generator) -> Dict[str, np.ndarray]:
-    """The generator's weights as the JAX package's arrays, keyed by pytree
-    path (`format/w`, `blocks/0/conv0/b`, `torgb/1/scale`, ...)."""
-    out: Dict[str, np.ndarray] = {}
-    for prefix, layer in module.jax_layers().items():
-        for key, arr in layer.to_jax().items():
-            out[f"{prefix}/{key}"] = arr
-    return out
-
-
-def load_params_from_jax(module: Generator, arrays: Dict[str, np.ndarray]) -> Generator:
-    """Copy the JAX package's arrays into `module`, strictly: the key sets
-    must match (KeyError) and every shape must agree (ValueError)."""
-    layers = module.jax_layers()
-    check_key_set((f"{p}/{k}" for p in layers for k in ("w", "b", "scale")), arrays)
-    for prefix, layer in layers.items():
-        layer.load_jax(arrays, prefix)
-    return module
 
 
 def params_from_jax(arrays: Dict[str, np.ndarray], **options) -> Generator:

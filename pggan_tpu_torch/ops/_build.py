@@ -1,12 +1,14 @@
 """Build the CUDA sources under `pggan_tpu_torch/csrc/` with nvcc and load
 them with ctypes — the counterpart of `pggan_tpu/native/build.py`.
 
-The sources have a plain C interface, so one nvcc call produces a shared
+The sources have a plain C interface, so nvcc turns each into a shared
 library in seconds (no PyTorch headers, no `torch.utils.cpp_extension`).
-The library is written to `pggan_tpu_torch/_build/` under a name keyed by a
-hash of the sources and flags, so an edited source is rebuilt at its first
-use and an unchanged one is loaded as it is. A failed build raises: there is
-no fallback on a CUDA tensor.
+Each source is its own library, and all the nvcc processes are started
+together, so the build takes as long as the slowest source. A library is
+written to `pggan_tpu_torch/_build/` under a name keyed by a hash of its
+source and the flags, so an edited source is rebuilt at its first use and
+an unchanged one is loaded as it is. A failed build raises: there is no
+fallback on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -18,13 +20,15 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Optional
+import types
+from typing import Dict, List, Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_BUILD_TIMEOUT_S = 600
 
 _c_void_p, _c_int, _c_int64, _c_float = (ctypes.c_void_p, ctypes.c_int,
                                           ctypes.c_int64, ctypes.c_float)
@@ -37,14 +41,22 @@ _SIGNATURES = {
     "pggan_lrelu_pixel_norm_fwd": (_c_int, [_c_void_p, _c_void_p, _c_int64,
                                             _c_int, _c_int, _c_float, _c_float,
                                             _c_void_p]),
+    # x, g, dx, rows, cols, dtype, slope, eps, stream
+    "pggan_lrelu_pixel_norm_bwd": (_c_int, [_c_void_p, _c_void_p, _c_void_p,
+                                            _c_int64, _c_int, _c_int, _c_float,
+                                            _c_float, _c_void_p]),
+    # x, out, n, f, sg, dtype, eps, stream
+    "pggan_minibatch_stddev_stat": (_c_int, [_c_void_p, _c_void_p, _c_int64,
+                                             _c_int64, _c_int, _c_int, _c_float,
+                                             _c_void_p]),
     "pggan_cuda_error_string": (ctypes.c_char_p, [_c_int]),
 }
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_lib: Optional[types.SimpleNamespace] = None
 
 
-def _sources() -> list:
+def _sources() -> List[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
@@ -61,55 +73,84 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> str:
-    """Path of the shared library for the current sources and flags."""
+def _library_path(src: str) -> str:
     digest = hashlib.sha256()
-    for src in _sources():
-        with open(src, "rb") as f:
-            digest.update(os.path.basename(src).encode() + b"\0" + f.read())
+    with open(src, "rb") as f:
+        digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libpggan_kernels_{digest.hexdigest()[:16]}.so")
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 
 
-def _compile(so_path: str) -> None:
+def library_paths() -> Dict[str, str]:
+    """source path -> shared library path, for the current sources and flags."""
+    return {src: _library_path(src) for src in _sources()}
+
+
+def _compile(pending: Dict[str, str]) -> None:
+    """Run one nvcc per source, all at once; raise if any failed."""
+    if not pending:
+        return
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so_path}.{os.getpid()}.tmp"     # concurrent builds never share a file
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    nvcc = _nvcc()
+    jobs = []
+    for src, so_path in pending.items():
+        tmp = f"{so_path}.{os.getpid()}.tmp"   # concurrent builds never share a file
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((src, so_path, tmp, cmd, proc))
+    failures = []
+    for src, so_path, tmp, cmd, proc in jobs:
+        try:
+            out, err = proc.communicate(timeout=_BUILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+            err += f"\nnvcc timed out after {_BUILD_TIMEOUT_S} s"
         # ptxas -v reports registers, shared memory and spills per kernel.
         with open(so_path[:-3] + ".log", "w") as log:
-            log.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        os.replace(tmp, so_path)
-    finally:
+            log.write(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode == 0:
+            os.replace(tmp, so_path)
+        else:
+            failures.append(f"{src}: nvcc failed ({proc.returncode}):\n{err[-4000:]}")
         if os.path.exists(tmp):
             os.unlink(tmp)
+    if failures:
+        raise RuntimeError("\n".join(failures))
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (if the sources changed) and load the kernels' library."""
+def load_library() -> types.SimpleNamespace:
+    """Build (where a source changed) and load the kernels' libraries;
+    returns a namespace with every C entry point of `_SIGNATURES`."""
     global _lib
     with _lock:
         if _lib is None:
-            so_path = library_path()
-            if not os.path.exists(so_path):
-                _compile(so_path)
-            lib = ctypes.CDLL(so_path)
-            for name, (restype, argtypes) in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.restype, fn.argtypes = restype, argtypes
-            _lib = lib
+            paths = library_paths()
+            _compile({src: so for src, so in paths.items() if not os.path.exists(so)})
+            entries = {}
+            for so_path in paths.values():
+                cdll = ctypes.CDLL(so_path)
+                for name, (restype, argtypes) in _SIGNATURES.items():
+                    if hasattr(cdll, name):
+                        fn = getattr(cdll, name)
+                        fn.restype, fn.argtypes = restype, argtypes
+                        entries[name] = fn
+            missing = sorted(set(_SIGNATURES) - set(entries))
+            if missing:
+                raise RuntimeError(f"entry points not found in {CSRC_DIR}: {missing}")
+            _lib = types.SimpleNamespace(**entries)
         return _lib
 
 
 def build_log() -> str:
-    """What nvcc and ptxas printed for the current library ('' if it was
+    """What nvcc and ptxas printed for the current libraries ('' for one
     built by an earlier process that left no log)."""
-    log = library_path()[:-3] + ".log"
-    if not os.path.exists(log):
-        return ""
-    with open(log) as f:
-        return f.read()
+    logs = []
+    for so_path in library_paths().values():
+        log = so_path[:-3] + ".log"
+        if os.path.exists(log):
+            with open(log) as f:
+                logs.append(f.read())
+    return "".join(logs)

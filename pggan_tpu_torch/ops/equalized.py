@@ -9,8 +9,10 @@ parameter, so an optimizer cannot train it.
 
 Parameters use PyTorch's layouts (OIHW convolution weights, [out, in] linear
 weights); `to_jax`/`load_jax` convert from and to the JAX package's HWIO and
-[in, out] arrays. The convolutions and the matrix product themselves are
-cuDNN's and cuBLAS's, as the JAX package leaves them to XLA.
+[in, out] arrays, and `params_to_jax`/`load_params_from_jax` do so for a
+whole network keyed by the JAX pytree paths. The convolutions and the matrix
+product themselves are cuDNN's and cuBLAS's, as the JAX package leaves them
+to XLA.
 """
 
 from __future__ import annotations
@@ -22,6 +24,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from pggan_tpu_torch.utils.checkpoint import check_key_set
+
+# Network ids of the per-component seeds: the JAX trainer folds 0 into G's
+# key and 1 into D's (`trainer.py:89-90`).
+NET_G, NET_D = 0, 1
+
+
+def component_rng(seed: int, net: int, *component: int) -> torch.Generator:
+    """A CPU generator for one layer, seeded by (seed, network, component
+    ids), so a layer's weights do not depend on when it was built."""
+    state = np.random.SeedSequence([int(seed), net, *component]).generate_state(1)
+    return torch.Generator().manual_seed(int(state[0]))
 
 
 def he_constant(fan_in: int, lr_mul: float = 1.0) -> float:
@@ -143,3 +158,85 @@ class EqualizedLinear(_Equalized):
                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         return equalized_linear(x, self.weight, self.bias, self.scale,
                                 compute_dtype=compute_dtype)
+
+
+def jax_layers(module: nn.Module) -> Dict[str, _Equalized]:
+    """JAX pytree path prefix → layer, e.g. 'blocks/0/conv1'."""
+    return {name.replace(".", "/"): layer for name, layer in module.named_modules()
+            if isinstance(layer, _Equalized)}
+
+
+def params_to_jax(module: nn.Module) -> Dict[str, np.ndarray]:
+    """A network's weights as the JAX package's arrays, keyed by pytree
+    path (`format/w`, `blocks/0/conv0/b`, `torgb/1/scale`, ...)."""
+    out: Dict[str, np.ndarray] = {}
+    for prefix, layer in jax_layers(module).items():
+        for key, arr in layer.to_jax().items():
+            out[f"{prefix}/{key}"] = arr
+    return out
+
+
+def load_params_from_jax(module: nn.Module, arrays: Dict[str, np.ndarray]) -> nn.Module:
+    """Copy the JAX package's arrays into `module`, strictly: the key sets
+    must match (KeyError) and every shape must agree (ValueError)."""
+    layers = jax_layers(module)
+    check_key_set((f"{p}/{k}" for p in layers for k in ("w", "b", "scale")), arrays)
+    for prefix, layer in layers.items():
+        layer.load_jax(arrays, prefix)
+    return module
+
+
+def adam_state_to_jax(opt: torch.optim.Adam, module: nn.Module) -> Dict[str, np.ndarray]:
+    """`opt`'s moments for `module`'s weights as optax's Adam state flattens
+    in a checkpoint: '0/count' (int32) and '0/mu/<path>', '0/nu/<path>' in
+    the JAX layouts. Weights that have no state yet (never given a
+    gradient) and the He constants get zeros, as optax holds for a zero
+    gradient."""
+    out: Dict[str, np.ndarray] = {}
+    count = 0
+    for prefix, layer in jax_layers(module).items():
+        for key, param, to_jax in (("w", layer.weight, layer._weight_to_jax),
+                                   ("b", layer.bias, None), ("scale", None, None)):
+            state = opt.state.get(param, {}) if param is not None else {}
+            for moment, slot in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+                if slot in state:
+                    value = state[slot].detach()
+                    value = (to_jax(value) if to_jax else value).cpu().numpy().copy()
+                else:
+                    shape = () if param is None else (
+                        to_jax(param) if to_jax else param).shape
+                    value = np.zeros(shape, np.float32)
+                out[f"0/{moment}/{prefix}/{key}"] = value
+            if "step" in state:
+                count = max(count, int(state["step"]))
+    out["0/count"] = np.asarray(count, np.int32)
+    return out
+
+
+def load_adam_state_from_jax(opt: torch.optim.Adam, module: nn.Module,
+                             arrays: Dict[str, np.ndarray]) -> None:
+    """Set `opt`'s moments for `module` from optax's flattened Adam state,
+    strictly (the key set must be that of `adam_state_to_jax`). A count of
+    0 leaves the optimizer fresh."""
+    layers = jax_layers(module)
+    check_key_set(["0/count"] + [f"0/{m}/{p}/{k}" for m in ("mu", "nu")
+                                 for p in layers for k in ("w", "b", "scale")], arrays)
+    count = int(arrays["0/count"])
+    opt.state.clear()
+    if count == 0:
+        return
+    for prefix, layer in layers.items():
+        for key, param, from_jax in (("w", layer.weight, layer._weight_from_jax),
+                                     ("b", layer.bias, None)):
+            moments = {}
+            for moment, slot in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+                value = torch.tensor(np.asarray(arrays[f"0/{moment}/{prefix}/{key}"]))
+                value = from_jax(value) if from_jax else value
+                if tuple(value.shape) != tuple(param.shape):
+                    raise ValueError(
+                        f"shape mismatch for 0/{moment}/{prefix}/{key}: checkpoint "
+                        f"{tuple(value.shape)} vs model {tuple(param.shape)}")
+                moments[slot] = value.to(param).contiguous()
+            # Adam keeps its step count as a CPU f32 scalar (not fused, not
+            # capturable).
+            opt.state[param] = {"step": torch.tensor(float(count)), **moments}

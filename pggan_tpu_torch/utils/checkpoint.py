@@ -2,11 +2,22 @@
 `pggan_tpu/utils/checkpoint.py`, in numpy alone.
 
 One `.npz` per network under `{save_root}/{run_id}/ckpt/`: `{name}_{step}.npz`
-plus a `{name}_latest.npz` alias. Keys are `params/<path>` (and `opt/<path>`
-for optimizer state) with slash-joined pytree paths such as `format/w`,
-`blocks/0/conv1/b` or `torgb/2/scale`, and `__meta__` holds a JSON blob
-(`args`, `schedule`, `global_step`). A checkpoint written by either package
-loads in the other.
+plus a `{name}_latest.npz` alias. Keys are `params/<path>` with slash-joined
+pytree paths such as `format/w`, `blocks/0/conv1/b` or `torgb/2/scale`, and
+`__meta__` holds a JSON blob (`args`, `schedule`, `global_step`). A
+checkpoint written by either package loads in the other.
+
+Optimizer state is written as optax's Adam state flattens: `opt/0/count`
+(int32) and `opt/0/mu/<path>`, `opt/0/nu/<path>` for every parameter path,
+the He-constant `scale` leaves included. torch's Adam never sees those
+buffers, so their moments are written as zeros — what optax holds for them,
+since their gradient is zero (`ops/equalized.py:adam_state_to_jax`).
+
+The JAX trainer also writes the `rng` key of its latent stream into
+`__meta__`. The port writes none: a `torch.Generator` state is no JAX key.
+A JAX checkpoint's `rng` is ignored on resume, and a resumed port run draws
+its latents from a generator seeded by (seed, global_step), so it does not
+replay the latents of the run it resumes.
 """
 
 from __future__ import annotations
@@ -50,11 +61,15 @@ def _atomic_write(path: str, write) -> None:
 
 def save_checkpoint(save_root: str, run_id: str, name: str, global_step: int,
                     *, params: Dict[str, np.ndarray],
+                    opt: Optional[Dict[str, np.ndarray]] = None,
                     meta: Optional[Dict] = None) -> str:
-    """Write {name}_{step}.npz and refresh {name}_latest.npz, each atomically."""
+    """Write {name}_{step}.npz and refresh {name}_latest.npz, each atomically.
+    `opt` holds optimizer arrays keyed as optax flattens them ('0/count',
+    '0/mu/<path>', ...)."""
     directory = ckpt_dir(save_root, run_id)
     os.makedirs(directory, exist_ok=True)
     payload = {f"params/{key}": np.asarray(arr) for key, arr in params.items()}
+    payload.update({f"opt/{key}": np.asarray(arr) for key, arr in (opt or {}).items()})
     meta = dict(meta or {})
     meta["global_step"] = int(global_step)
     payload["__meta__"] = np.frombuffer(json.dumps(meta).encode("utf-8"),

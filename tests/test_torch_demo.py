@@ -52,7 +52,7 @@ def test_demo_samples_jax_checkpoint(jax_run, tmp_path, capsys):
 
 
 def test_loaded_params_equal_jax_demo(jax_run):
-    port, args, scale, alpha = demo.load_generator(jax_run, "run", 7)
+    port, args, scale, alpha = demo.load_generator(jax_run, "run", 7, device="cpu")
     jax_params, *_ = jax_demo.load_generator(JaxConfig(
         {"ckpt_id": "run", "ckpt_step": 7, "save_root": jax_run}))
     want = jax_ckpt.tree_to_arrays(jax_params)
@@ -68,9 +68,9 @@ def test_strict_key_check(jax_run, tmp_path):
     del arrays["blocks/1/conv1/b"]
     port_ckpt.save_checkpoint(str(tmp_path), "bad", "G", 1, params=arrays, meta=meta)
     with pytest.raises(KeyError, match="blocks/1/conv1/b"):
-        demo.load_generator(str(tmp_path), "bad")
+        demo.load_generator(str(tmp_path), "bad", device="cpu")
     with pytest.raises(FileNotFoundError):
-        demo.load_generator(str(tmp_path), "absent")
+        demo.load_generator(str(tmp_path), "absent", device="cpu")
 
 
 def test_port_checkpoint_loads_in_jax(jax_run, tmp_path):
@@ -98,7 +98,8 @@ def _imported_modules(path: pathlib.Path):
 
 
 def test_port_imports_no_jax():
-    files = sorted((REPO / "pggan_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "pggan_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_step.py"]
     assert len(files) > 10
     banned = []
     for path in files:

@@ -2,10 +2,11 @@
 
 The CUDA kernels run only on the card (`chip_smoke.py` holds each against
 its plain version there). Here each plain version — what the wrapper runs on
-a CPU tensor — is held against the Pallas function it replaces, run in
-interpret mode as `tests/test_pallas.py` does, on the same numpy inputs.
-Tolerance rtol=1e-5, atol=1e-6: both are f32 throughout and differ only in
-the order of the channel sum.
+a CPU tensor — and each autograd rule is held against the Pallas function
+it replaces, run in interpret mode as `tests/test_pallas.py` does, or
+against `jax.grad` of its JAX rule, on the same numpy inputs.
+Tolerance rtol=1e-5, atol=1e-6 unless a test says otherwise: both are f32
+throughout and differ only in the order of the sums.
 """
 
 import functools
@@ -13,6 +14,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
@@ -65,7 +67,9 @@ def test_cpu_wrappers_run_plain_and_launch_nothing():
     assert torch.equal(kernels.pixel_norm(x), kernels.pixel_norm_plain(x))
     assert torch.equal(kernels.lrelu_pixel_norm(x, 0.2),
                        kernels.lrelu_pixel_norm_plain(x, 0.2))
-    assert kernels.launches == {"pixel_norm": 0, "lrelu_pixel_norm": 0}
+    assert set(kernels.launches) == {"pixel_norm", "lrelu_pixel_norm",
+                                     "lrelu_pixel_norm_bwd", "minibatch_stddev_stat"}
+    assert all(n == 0 for n in kernels.launches.values())
 
 
 def test_plain_keeps_dtype_and_layout():
@@ -88,7 +92,6 @@ def test_kernel_rows_accepts_channels_last_and_latent():
     (lambda: torch.zeros(16, 512)[:, ::2], ValueError),             # strided latent
     (lambda: torch.zeros(2, 3, 16), ValueError),                    # 3-D
     (lambda: torch.zeros(16, 512, dtype=torch.float16), TypeError),
-    (lambda: torch.zeros(16, 512, requires_grad=True), RuntimeError),
 ])
 def test_kernel_rows_refuses(make, error):
     """The launch path's checks raise rather than copy or fall back."""
@@ -100,3 +103,115 @@ def test_launch_refuses_non_cuda_device():
     x = torch.zeros(16, 512, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         kernels.pixel_norm(x)
+
+
+@pytest.mark.parametrize("shape", [(4, 8, 8, 32), (16, 512), (2, 4, 4, 513),
+                                   (2, 3, 3, 16)])
+def test_lrelu_pixel_norm_bwd_plain_matches_pallas(shape):
+    """The plain backward against `_lrelu_pn_bwd_rule` (the Pallas backward
+    kernel, interpret mode) on the same x and cotangent g."""
+    x, g = _rand(shape, seed=11 + shape[-1]), _rand(shape, seed=12 + shape[-1])
+    (want,) = pk._lrelu_pn_bwd_rule(0.2, 1e-8, jnp.asarray(x), jnp.asarray(g))
+    got = kernels.lrelu_pixel_norm_bwd_plain(_to_torch(x), _to_torch(g), 0.2, 1e-8)
+    np.testing.assert_allclose(_to_numpy(got), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+def _vjp_of(fn, x: np.ndarray, g: np.ndarray) -> np.ndarray:
+    """Gradient through the port's autograd rule (the CPU path)."""
+    xt = _to_torch(x.copy()).requires_grad_(True)
+    (dx,) = torch.autograd.grad(fn(xt), xt, _to_torch(g))
+    return _to_numpy(dx)
+
+
+def test_lrelu_pixel_norm_grad_matches_jax_rule():
+    """The gradient through `kernels.lrelu_pixel_norm` (the autograd rule
+    whose backward is the backward kernel on the card) equals jax.vjp of
+    the Pallas custom_vjp."""
+    x, g = _rand((2, 4, 4, 24), seed=13), _rand((2, 4, 4, 24), seed=14)
+    _, vjp = jax.vjp(lambda v: pk.lrelu_pixel_norm(v, 0.2, 1e-8), jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(g))
+    got = _vjp_of(lambda t: kernels.lrelu_pixel_norm(t, 0.2), x, g)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+def test_pixel_norm_grads_match_jax_jvp():
+    """First and second derivatives through `kernels.pixel_norm` against
+    jax.grad of the Pallas custom_jvp's rule."""
+    x, w = _rand((16, 40), seed=15), _rand((16, 40), seed=16)
+    v = _rand((16, 40), seed=17)
+
+    def jax_grad(a):
+        return jax.grad(lambda t: jnp.vdot(jnp.asarray(w), pk.pixel_norm(t, 1e-8)))(a)
+    want1 = np.asarray(jax_grad(jnp.asarray(x)))
+    want2 = np.asarray(jax.grad(lambda a: jnp.vdot(jnp.asarray(v), jax_grad(a)))(
+        jnp.asarray(x)))
+    xt = torch.from_numpy(x.copy()).requires_grad_(True)
+    (g1,) = torch.autograd.grad((kernels.pixel_norm(xt) * torch.from_numpy(w)).sum(),
+                                xt, create_graph=True)
+    (g2,) = torch.autograd.grad((g1 * torch.from_numpy(v)).sum(), xt)
+    np.testing.assert_allclose(g1.detach().numpy(), want1, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(g2.numpy(), want2, rtol=1e-4, atol=1e-5)
+
+
+MB_CASES = [((16, 4, 4, 32), 4), ((6, 4, 4, 16), 6), ((2, 4, 4, 8), 2),
+            ((8, 24), 4)]
+
+
+@pytest.mark.parametrize("shape, sg", MB_CASES)
+def test_minibatch_stddev_stat_plain_matches_pallas(shape, sg):
+    x = _rand(shape, seed=20 + shape[0])
+    want = np.asarray(pk.minibatch_stddev_stat(jnp.asarray(x), sg, 1e-8))
+    got = kernels.minibatch_stddev_stat_plain(_to_torch(x), sg, 1e-8)
+    assert got.dtype == torch.float32 and got.shape == (shape[0] // sg,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape, sg", MB_CASES[:3])
+def test_minibatch_stddev_stat_derivatives_match_jax(shape, sg):
+    """First and second derivatives of the port's autograd rule (its
+    backward is torch ops, so R1's double backward composes) against
+    jax.grad of the Pallas op's JVP. Second order at rtol 1e-4, atol 1e-5:
+    it divides by std twice."""
+    x = _rand(shape, seed=30 + shape[0])
+    w = _rand((shape[0] // sg,), seed=31)
+    v = _rand(shape, seed=32)
+
+    def jax_grad(a):
+        return jax.grad(lambda t: jnp.vdot(jnp.asarray(w),
+                                           pk.minibatch_stddev_stat(t, sg, 1e-8)))(a)
+    want1 = np.asarray(jax_grad(jnp.asarray(x)))
+    want2 = np.asarray(jax.grad(lambda a: jnp.sum(jnp.asarray(v) * jax_grad(a)))(
+        jnp.asarray(x)))
+    xt = _to_torch(x.copy()).requires_grad_(True)
+    stat = kernels.minibatch_stddev_stat(xt, sg)
+    (g1,) = torch.autograd.grad((stat * torch.from_numpy(w)).sum(), xt, create_graph=True)
+    (g2,) = torch.autograd.grad((g1 * _to_torch(v)).sum(), xt)
+    np.testing.assert_allclose(_to_numpy(g1.detach()), want1, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(_to_numpy(g2), want2, rtol=1e-4, atol=1e-5)
+
+
+def _meta(fmt=torch.channels_last, dtype=torch.float32):
+    return torch.zeros(2, 4, 3, 3, device="meta", dtype=dtype).to(memory_format=fmt)
+
+
+@pytest.mark.parametrize("call, error, match", [
+    (lambda: kernels.minibatch_stddev_stat(torch.zeros(6, 8), 4), ValueError, "divide"),
+    (lambda: kernels.minibatch_stddev_stat(torch.zeros(4, 8), 1), ValueError, "divide"),
+    (lambda: kernels.kernel_samples(torch.zeros(4, 8, 2, 2)[:, ::2], 4), ValueError,
+     "contiguous"),
+    (lambda: kernels.kernel_samples(torch.zeros(4, 8, dtype=torch.float16), 4),
+     TypeError, "float32"),
+    (lambda: kernels.minibatch_stddev_stat(torch.zeros(4, 8, device="meta"), 2),
+     ValueError, "no kernel"),
+    (lambda: kernels.lrelu_pixel_norm_bwd(_meta(), _meta(torch.contiguous_format)),
+     ValueError, "channels_last"),
+    (lambda: kernels.lrelu_pixel_norm_bwd(_meta(), _meta(dtype=torch.bfloat16)),
+     ValueError, "g must match"),
+    (lambda: kernels.lrelu_pixel_norm_bwd(_meta(), _meta()), ValueError, "no kernel"),
+])
+def test_new_kernels_refuse(call, error, match):
+    """Wrong group sizes, layouts and dtypes raise, and so does a device
+    without a kernel; the backward kernel's gradient must match x (meta
+    tensors reach the launch checks without a card)."""
+    with pytest.raises(error, match=match):
+        call()

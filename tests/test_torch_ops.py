@@ -122,3 +122,27 @@ def test_layer_jax_round_trip_and_shape_check():
 ])
 def test_fused_scale_values_map_onto_two_forms(fused, cout, want):
     assert fuses_upscale(fused, cout) is want
+
+
+def test_downscale2d():
+    x = _rand((2, 8, 6, 5), seed=11)
+    want = np.asarray(jbasic.downscale2d(jnp.asarray(x)))
+    got = basic.downscale2d(_nchw(x))
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(_nhwc(got), want, **TOL)
+    ints = np.random.RandomState(12).randint(0, 256, (1, 4, 4, 3)).astype(np.uint8)
+    np.testing.assert_allclose(
+        _nhwc(basic.downscale2d(torch.from_numpy(ints).permute(0, 3, 1, 2))),
+        np.asarray(jbasic.downscale2d(jnp.asarray(ints))), **TOL)
+
+
+@pytest.mark.parametrize("n", [8, 6, 1])
+def test_minibatch_stddev(n):
+    """Subgroups of 4, of N when N % 4 != 0, and the zero channel at N == 1;
+    the port's channel is last, as in the JAX package."""
+    x = _rand((n, 4, 4, 6), seed=13 + n)
+    want = np.asarray(jbasic.minibatch_stddev(jnp.asarray(x)))
+    got = basic.minibatch_stddev(_nchw(x))
+    assert got.shape == (n, 7, 4, 4)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(_nhwc(got), want, **TOL)
