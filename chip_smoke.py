@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's sampling and training paths once on one CUDA card.
+"""Drive the PyTorch port's sampling, training and ops paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -33,7 +33,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      and Adam's first moments (= the gradients, β1 = 0);
  10. times on the card: the R1 step and the step without R1, each in bf16,
      f32 with TF32 off and f32 with TF32 on; peak memory; the new kernels
-     against their plain versions; pixel_norm against F.rms_norm.
+     against their plain versions; pixel_norm against F.rms_norm;
+ 11. the StyleGAN2-ops path (`pggan_tpu_torch.ops`): the bias_lrelu_gain
+     kernel against its plain version (f32 and bf16, the epilogue shapes and
+     ragged ones, with and without a bias) and its rule's first and second
+     derivatives against autograd of the plain version; bias_act and
+     filtered_lrelu at the two top blocks' shapes through the ops entry
+     points with the launch counts (1 per leaky-ReLU call, none otherwise)
+     and kernel path vs plain path; a small case of every ops function on
+     the card against the CPU, grid_sample's second derivatives included;
+     times of the kernel, its plain version and filtered_lrelu.
 
 The second-to-last lines are a JSON object describing the kernels and the
 card's name and power limit; the last line is
@@ -46,7 +55,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import io
+import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -86,6 +97,14 @@ TRAIN_STEPS = 4            # steps of the training slice (phase 8)
 # algorithms do not sum in a fixed order. The bounds leave about 4.5x
 # (gradients) and 50x (losses) over that.
 STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-5, 2e-3
+# Phase 11: the ragged shapes of phase 3, bias_lrelu_gain's (slope, gain)
+# pairs, the filtered_lrelu shapes (the two top blocks of the 256² model at
+# batch 16) and bias_act's activations.
+RAGGED = [(2, 3, 3, 16), (2, 4, 4, 513), (2, 4, 4, 96)]
+BIAS_PARAMS = ((0.2, math.sqrt(2.0)), (0.1, 1.0))
+OPS_SHAPES = [(BATCH, 128, 128, 128), (BATCH, 256, 256, 64)]
+ACTIVATIONS = ("linear", "relu", "lrelu", "tanh", "sigmoid", "elu", "selu", "softplus",
+               "swish")
 # H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s off
 # the tensor cores.
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
@@ -268,7 +287,7 @@ def run_demo(demo, kernels, cfg, depths, tmp):
     check(rc == 0, f"demo returned {rc}")
     forwards = n_samples // BATCH
     want = {"pixel_norm": 2 * forwards, "lrelu_pixel_norm": 13 * forwards,
-            "lrelu_pixel_norm_bwd": 0, "minibatch_stddev_stat": 0}
+            "lrelu_pixel_norm_bwd": 0, "minibatch_stddev_stat": 0, "bias_lrelu_gain": 0}
     check(launches == want, f"launches {launches}, expected {want}")
     files = sorted(os.listdir(out_dir))
     check(len(files) == n_samples, f"{len(files)} files written")
@@ -509,7 +528,7 @@ def run_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp):
         d, g = line.replace("lossD:", "").split("| lossG:")
         check(np.isfinite(float(d)) and np.isfinite(float(g)), f"loss line {line!r}")
     per_step = {"pixel_norm": 4, "lrelu_pixel_norm": 26, "lrelu_pixel_norm_bwd": 13,
-                "minibatch_stddev_stat": 3}
+                "minibatch_stddev_stat": 3, "bias_lrelu_gain": 0}
     want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
     check(launches == want, f"launches {launches}, expected {want}")
     ckpt_steps = sorted(int(f.split("_")[1][:-4]) for f in os.listdir(
@@ -648,6 +667,239 @@ def time_train_kernels(kernels, gen, card):
     return times, rms_ms
 
 
+@contextlib.contextmanager
+def plain_bias_act(kernels):
+    """Route bias_act's leaky ReLU (and so filtered_lrelu's) to the plain
+    version of bias_lrelu_gain, for comparison and timing only."""
+    with mock.patch.object(kernels, "bias_lrelu_gain", kernels.bias_lrelu_gain_plain):
+        yield
+
+
+def check_bias_act_kernel(kernels, path_shapes, gen):
+    """Phase 11a: the bias_lrelu_gain kernel against its plain version, f32
+    and bf16, at every conv-epilogue shape, [16, 512] and three ragged
+    shapes; an f32 bias, a bias in x's dtype and none; (slope, gain) of
+    (0.2, √2) and (0.1, 1). Returns {dtype: max |diff|}."""
+    shapes = [(BATCH, 512)] + sorted(set(path_shapes)) + RAGGED
+    max_err = {dt: 0.0 for dt in TOL}
+    calls = 0
+    with torch.no_grad():
+        for shape in shapes:
+            for dt, tol in TOL.items():
+                x = nhwc(shape, dt, gen)
+                b32 = torch.randn((shape[-1],), generator=gen, device=DEVICE)
+                biases = [b32, None] + ([b32.to(dt)] if dt != torch.float32 else [])
+                for b, (slope, gain) in itertools.product(biases, BIAS_PARAMS):
+                    got = kernels.bias_lrelu_gain(x, b, slope, gain)
+                    want = kernels.bias_lrelu_gain_plain(x, b, slope, gain)
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(got, want, **tol, msg=lambda m: (
+                        f"bias_lrelu_gain {shape} {dt} b {None if b is None else b.dtype} "
+                        f"({slope}, {gain}): {m}"))
+                    check(got.stride() == x.stride(), f"bias_lrelu_gain {shape}: layout")
+                    max_err[dt] = max(max_err[dt], float((got.float() - want.float()).abs().max()))
+                    calls += 1
+    print(f"[11 ops] bias_lrelu_gain: {calls} calls over {len(shapes)} shapes, f32 and bf16 "
+          f"x, f32 / x-dtype / no bias, (slope, gain) in {BIAS_PARAMS}, match the plain "
+          f"version; max |diff| f32 {max_err[torch.float32]:.3g} ({TOL[torch.float32]}), "
+          f"bf16 {max_err[torch.bfloat16]:.3g} ({TOL[torch.bfloat16]})")
+
+    # Refusals on the card: no copy into another layout, no fallback.
+    x = nhwc((2, 4, 4, 8), torch.float32, gen)
+    for label, call, error in (
+            ("NCHW-contiguous", lambda: kernels.bias_lrelu_gain(x.contiguous()), ValueError),
+            ("float16", lambda: kernels.bias_lrelu_gain(x.half()), TypeError),
+            ("a bias of the wrong length", lambda: kernels.bias_lrelu_gain(
+                x, torch.zeros(4, device=DEVICE)), ValueError)):
+        try:
+            call()
+        except error:
+            continue
+        raise SmokeFailure(f"bias_lrelu_gain took an input that is {label}")
+    print("[11 ops] bias_lrelu_gain raises on an NCHW-contiguous input, float16 and a "
+          "wrong bias")
+    return max_err
+
+
+def check_bias_act_rule(kernels, gen):
+    """Phase 11b: the first and second derivatives of bias_lrelu_gain's
+    autograd rule (kernel forward, torch-ops backward) against autograd of
+    its plain version, for L = sum(w·y²), then sum(v·dL/dx) + sum(u·dL/db)."""
+    shape = (BATCH, 32, 32, 128)
+    x = nhwc(shape, torch.float32, gen).requires_grad_(True)
+    b = torch.randn((128,), generator=gen, device=DEVICE).requires_grad_(True)
+    w, v = nhwc(shape, torch.float32, gen), nhwc(shape, torch.float32, gen)
+    u = torch.randn((128,), generator=gen, device=DEVICE)
+    derivs = []
+    for fn in (kernels.bias_lrelu_gain, kernels.bias_lrelu_gain_plain):
+        g1x, g1b = torch.autograd.grad((fn(x, b).square() * w).sum(), (x, b),
+                                       create_graph=True)
+        check(g1x.requires_grad and g1b.requires_grad,
+              "the first derivative is not differentiable")
+        g2x, g2b = torch.autograd.grad((g1x * v).sum() + (g1b * u).sum(), (x, b))
+        derivs.append((g1x.detach(), g1b.detach(), g2x, g2b))
+    report = []
+    for name, k, p in zip(("dx", "db", "d2x", "d2b"), *derivs):
+        scale, err = float(p.abs().max()), float((k - p).abs().max())
+        # The sums over the 16·32·32 positions run in another order.
+        check(err <= 1e-5 * scale, f"bias_lrelu_gain {name}: |diff| {err:.3g} of {scale:.3g}")
+        report.append(f"{name} {err:.3g} (largest {scale:.3g})")
+    print(f"[11 ops] bias_lrelu_gain derivatives at {list(shape)} f32, rule vs autograd "
+          f"of plain, max |diff|: {', '.join(report)}; bound 1e-5 of the largest entry")
+
+
+def check_ops_on_card(ops):
+    """Phase 11d: a small case of every ops-layer function on the card
+    against the same call on the CPU (numpy-seeded inputs, f32, TF32 off),
+    grid_sample's second derivatives included. Tolerance rtol 1e-5, atol
+    1e-5: CUDA's and the CPU's math libraries and sum orders differ."""
+    rng = np.random.default_rng(5)
+
+    def arr(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+    x = arr(2, 8, 9, 6).permute(0, 3, 1, 2)               # NHWC bytes, NCHW view
+    b, w3, w_down = arr(6), arr(3, 3, 6, 4), arr(2, 2, 6, 4)
+    grid = torch.from_numpy(rng.uniform(-1.2, 1.2, (2, 5, 4, 2)).astype(np.float32))
+    f4 = {d: ops.setup_filter([1, 3, 3, 1], device=d) for d in ("cpu", DEVICE)}
+    f8 = {d: ops.setup_filter(list(range(1, 9)), device=d) for d in ("cpu", DEVICE)}
+    cases = [(f"bias_act {act}{' clamp' if clamp else ''}",
+              lambda d, act=act, clamp=clamp: ops.bias_act(
+                  x.to(d), b.to(d), act=act, clamp=clamp))
+             for act in ACTIVATIONS for clamp in (None, 1.5)]
+    cases += [
+        ("fma", lambda d: ops.basic.fma(x.to(d), x.to(d), b.to(d).view(1, -1, 1, 1))),
+        ("setup_filter", lambda d: f8[d]),
+        ("upfirdn2d up 2", lambda d: ops.upfirdn2d(x.to(d), f4[d], up=2, padding=(2, 1, 2, 1))),
+        ("upfirdn2d down 2, crop", lambda d: ops.upfirdn2d(x.to(d), f8[d], down=2,
+                                                           padding=(3, 2, -1, 4))),
+        ("filter2d", lambda d: ops.filter2d(x.to(d), f4[d], flip_filter=True)),
+        ("upsample2d", lambda d: ops.upsample2d(x.to(d), f4[d])),
+        ("downsample2d", lambda d: ops.downsample2d(x.to(d), f4[d])),
+        ("bilinear_align_corners", lambda d: ops.resample.bilinear_align_corners(
+            x.to(d), 13, 1)),
+        ("filtered_lrelu", lambda d: ops.filtered_lrelu(
+            x.to(d), f4[d], f4[d], b.to(d), up=2, down=2, padding=3)),
+        ("filtered_lrelu clamp", lambda d: ops.filtered_lrelu(
+            x.to(d), f4[d], None, b.to(d), up=2, padding=1, clamp=0.5)),
+        ("conv2d_resample", lambda d: ops.conv2d_resample(x.to(d), w3.to(d), padding=1,
+                                                          flip_weight=False)),
+        ("conv2d_resample up 2", lambda d: ops.conv2d_resample(
+            x.to(d), w3.to(d), f4[d], up=2, padding=1)),
+        ("conv2d_resample down 2", lambda d: ops.conv2d_resample(
+            x.to(d), w3.to(d), f4[d], down=2, padding=1)),
+        ("conv2d_resample strided", lambda d: ops.conv2d_resample(
+            x.to(d), w_down.to(d), down=2)),
+        ("grid_sample", lambda d: ops.grid_sample(x.to(d), grid.to(d))),
+    ]
+    worst = 0.0
+    with torch.no_grad():
+        for name, fn in cases:
+            want, got = fn("cpu"), fn(DEVICE).cpu()
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                                       msg=lambda m, name=name: f"{name}: {m}")
+            worst = max(worst, float((got - want).abs().max()))
+
+    # grid_sample to second order: d/dgrid of sum(y²), then the gradient of
+    # the sum of its squares with respect to the image and the grid.
+    second = {}
+    for d in ("cpu", DEVICE):
+        xd = x.to(d).requires_grad_(True)
+        gd = grid.to(d).requires_grad_(True)
+        (d_grid,) = torch.autograd.grad(ops.grid_sample(xd, gd).square().sum(), gd,
+                                        create_graph=True)
+        second[d] = [t.cpu() for t in torch.autograd.grad(d_grid.square().sum(), (xd, gd))]
+    report = []
+    for name, got, want in zip(("image", "grid"), second[DEVICE], second["cpu"]):
+        scale, err = float(want.abs().max()), float((got - want).abs().max())
+        check(err <= 1e-4 * scale, f"grid_sample second derivative ({name}): |diff| "
+              f"{err:.3g} of {scale:.3g}")
+        report.append(f"{name} {err:.3g} (largest {scale:.3g})")
+    print(f"[11 ops] {len(cases)} ops-layer calls on the card match the CPU; max |diff| "
+          f"{worst:.3g} (rtol 1e-5, atol 1e-5); grid_sample second derivatives, card vs "
+          f"CPU: {', '.join(report)}; bound 1e-4 of the largest entry")
+
+
+def run_ops_path(kernels, ops, gen):
+    """Phase 11c: the ops path through its entry points, with every launch
+    count set to 0 just before and read just after: bias_act's leaky ReLU at
+    the top block's shape in bf16 with an f32 bias, bias_act swish (no
+    kernel), and filtered_lrelu at the two top blocks' shapes in f32 (up 2,
+    down 2, [1,3,3,1] filters, padding 3, a bias). Then the same calls with
+    the plain version (not counted). Returns the launches."""
+    f = ops.setup_filter([1, 3, 3, 1], device=DEVICE)
+    x_act = nhwc(OPS_SHAPES[-1], torch.bfloat16, gen)
+    b_act = torch.randn((OPS_SHAPES[-1][-1],), generator=gen, device=DEVICE)
+    inputs = [(nhwc(s, torch.float32, gen), torch.randn((s[-1],), generator=gen,
+                                                         device=DEVICE)) for s in OPS_SHAPES]
+
+    def drive():
+        return ([ops.bias_act(x_act, b_act, act="lrelu"),
+                 ops.bias_act(x_act, b_act, act="swish")]
+                + [ops.filtered_lrelu(x, f, f, b, up=2, down=2, padding=3) for x, b in inputs])
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = drive()
+        torch.cuda.synchronize()
+        drive_s = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        want = dict.fromkeys(launches, 0)
+        want["bias_lrelu_gain"] = 1 + len(OPS_SHAPES)
+        check(launches == want, f"ops path launches {launches}, expected {want}")
+        with plain_bias_act(kernels):
+            plain_outs = drive()
+    for i, (out, plain) in enumerate(zip(outs, plain_outs)):
+        check(out.shape == (x_act if i < 2 else inputs[i - 2][0]).shape, f"out {i} shape")
+        check(bool(torch.isfinite(out).all()), f"out {i} is not finite")
+        check(out.is_contiguous(memory_format=torch.channels_last), f"out {i} layout")
+        torch.testing.assert_close(out, plain, **TOL[out.dtype],
+                                   msg=lambda m, i=i: f"ops path out {i}: {m}")
+    errs = [float((o.float() - p.float()).abs().max()) for o, p in zip(outs, plain_outs)]
+    print(f"[11 ops] ops path in {drive_s:.2f} s: bias_act lrelu and swish at "
+          f"{list(OPS_SHAPES[-1])} bf16, filtered_lrelu (up 2, down 2, padding 3, "
+          f"[1,3,3,1]) at {[list(s) for s in OPS_SHAPES]} f32: launches {launches}; "
+          f"kernel path vs plain path max |diff| {[round(e, 9) for e in errs]}")
+    return launches
+
+
+def time_ops(kernels, ops, gen, card):
+    """Phase 11e: the kernel against its plain version at the top block's
+    shape, f32 and bf16, and filtered_lrelu with the kernel against it with
+    the plain version at both shapes, f32. Returns {(name, dtype or shape):
+    (kernel ms, plain ms)}."""
+    times = {}
+    big = OPS_SHAPES[-1]
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            x = nhwc(big, dt, gen)
+            b = torch.randn((big[-1],), generator=gen, device=DEVICE)
+            plain_ms, kernel_ms = abba_ms(lambda: kernels.bias_lrelu_gain_plain(x, b),
+                                          lambda: kernels.bias_lrelu_gain(x, b))
+            times[("bias_lrelu_gain", dt)] = (kernel_ms, plain_ms)
+            gbps = 2 * x.numel() * x.element_size() / (kernel_ms * 1e-3) / 1e9
+            print(f"[11 times] bias_lrelu_gain {list(big)} {str(dt)[6:]}: kernel "
+                  f"{kernel_ms:.4f} ms ({gbps:.0f} GB/s of one read + one write), plain "
+                  f"{plain_ms:.4f} ms ({card})")
+        f = ops.setup_filter([1, 3, 3, 1], device=DEVICE)
+        for shape in OPS_SHAPES:
+            x = nhwc(shape, torch.float32, gen)
+            b = torch.randn((shape[-1],), generator=gen, device=DEVICE)
+
+            def run():
+                return ops.filtered_lrelu(x, f, f, b, up=2, down=2, padding=3)
+
+            def plain():
+                with plain_bias_act(kernels):
+                    return run()
+            plain_ms, kernel_ms = abba_ms(plain, run, iters=10)
+            times[("filtered_lrelu", shape)] = (kernel_ms, plain_ms)
+            print(f"[11 times] filtered_lrelu {list(shape)} f32 (up 2, down 2, padding 3): "
+                  f"with the kernel {kernel_ms:.3f} ms, with the plain version "
+                  f"{plain_ms:.3f} ms ({card})")
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -722,10 +974,21 @@ def main() -> int:
     time_train(step_mod, kernels, step_cfg, arrays_g, arrays_d, gen, card)
     train_times, rms_ms = time_train_kernels(kernels, gen, card)
 
-    # Every kernel of the two paths at its largest f32 shape on them;
+    # ---- the StyleGAN2-ops path ----
+    from pggan_tpu_torch import ops
+
+    max_err["bias_lrelu_gain"] = check_bias_act_kernel(kernels, path_shapes, gen)
+    check_bias_act_rule(kernels, gen)
+    ops_launches = run_ops_path(kernels, ops, gen)
+    check_ops_on_card(ops)
+    print(f"[11 times] card: {card}")
+    ops_times = time_ops(kernels, ops, gen, card)
+
+    # Every kernel of the three paths at its largest f32 shape on them;
     # `launches` is the training run's count (the demo's is checked in
-    # phase 4). Bounds: each input read once and each output written once
-    # at 3.35 TB/s, against a few f32 operations per element at 67 TFLOP/s.
+    # phase 4), and bias_lrelu_gain's the ops path's (phase 11). Bounds: each
+    # input read once and each output written once at 3.35 TB/s, against a
+    # few f32 operations per element at 67 TFLOP/s.
     rows, big = (BATCH, 4, 4, 512), (BATCH, 256, 256, 64)
     n_rows, n_big = int(np.prod(rows)), int(np.prod(big))
     entries = [
@@ -739,14 +1002,18 @@ def main() -> int:
         ("minibatch_stddev_stat", "mb_stddev.cu", ":252", rows,
          train_times[("minibatch_stddev_stat", torch.float32)],
          n_rows * 4 + BATCH // 4 * 4, 6 * n_rows, None),
+        ("bias_lrelu_gain", "bias_act.cu", ":97", big,
+         ops_times[("bias_lrelu_gain", torch.float32)], 2 * n_big * 4 + big[-1] * 4,
+         4 * n_big, None),
     ]
+    path_launches = dict(train_launches, bias_lrelu_gain=ops_launches["bias_lrelu_gain"])
     report = []
     for name, source, line, shape, (kernel_ms, plain_ms), nbytes, flops, lib_ms in entries:
         b_ms, b_by = bound_ms(nbytes, flops)
         report.append({"name": name, "route": "cuda",
                        "source": f"pggan_tpu_torch/csrc/{source}",
                        "replaces": f"pggan_tpu/ops/pallas_kernels.py{line}",
-                       "launches": train_launches[name],
+                       "launches": path_launches[name],
                        "max_abs_err": max_err[name][torch.float32],
                        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                        "bound_by": b_by, "library_ms": lib_ms,

@@ -2,10 +2,11 @@
 
 The JAX package `pggan_tpu` is the reference; this package keeps its module
 names so each counterpart is easy to find. Ported so far: generator
-sampling (`pggan_tpu_torch.demo`) and training (`pggan_tpu_torch.train`,
-the r1 and wgangp train step, the trainer with lazy R1 and checkpoints),
-with hand-written CUDA kernels for `pixel_norm`, `lrelu_pixel_norm` (forward
-and backward) and `minibatch_stddev_stat` (`ops/kernels.py`, `csrc/`).
+sampling (`pggan_tpu_torch.demo`), training (`pggan_tpu_torch.train`, the
+r1 and wgangp train step, the trainer with lazy R1 and checkpoints) and the
+StyleGAN2-ops layer (`pggan_tpu_torch.ops`), with hand-written CUDA kernels
+for `pixel_norm`, `lrelu_pixel_norm` (forward and backward),
+`minibatch_stddev_stat` and `bias_lrelu_gain` (`ops/kernels.py`, `csrc/`).
 """
 
 from pggan_tpu_torch.config import Config  # noqa: F401

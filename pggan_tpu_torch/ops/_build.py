@@ -49,6 +49,10 @@ _SIGNATURES = {
     "pggan_minibatch_stddev_stat": (_c_int, [_c_void_p, _c_void_p, _c_int64,
                                              _c_int64, _c_int, _c_int, _c_float,
                                              _c_void_p]),
+    # x, b (or null), y, n, cols, x dtype, b dtype, slope, gain, stream
+    "pggan_bias_lrelu_gain": (_c_int, [_c_void_p, _c_void_p, _c_void_p, _c_int64,
+                                       _c_int, _c_int, _c_int, _c_float, _c_float,
+                                       _c_void_p]),
     "pggan_cuda_error_string": (ctypes.c_char_p, [_c_int]),
 }
 

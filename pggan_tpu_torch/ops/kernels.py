@@ -8,16 +8,18 @@ their autograd rules and the launch counters — the counterpart of
 | `lrelu_pixel_norm`      | `pggan_lrelu_pixel_norm_fwd` (norm_kernels) | `_lrelu_pn_fwd_kernel`          |
 | `lrelu_pixel_norm_bwd`  | `pggan_lrelu_pixel_norm_bwd` (norm_kernels) | `_lrelu_pn_bwd_kernel`          |
 | `minibatch_stddev_stat` | `pggan_minibatch_stddev_stat` (mb_stddev)   | `_mb_stddev_kernel`             |
+| `bias_lrelu_gain`       | `pggan_bias_lrelu_gain` (bias_act.cu)       | `_bias_lrelu_kernel`            |
 
 The device decides the path: on a CPU tensor a wrapper runs the plain
 version; on a CUDA tensor it launches the kernel or raises. It never copies
 its input into another layout and never falls back to the plain version.
 
-Differentiation follows the JAX package. `pixel_norm` and
-`minibatch_stddev_stat` are `custom_jvp`s there, so their backward here is
-written in differentiable torch ops (`pallas_kernels.py:80-90` and
-`:293-300`): R1's double backward, which runs through D's minibatch-stddev,
-composes. `lrelu_pixel_norm` is a `custom_vjp` there, first order only (G is
+Differentiation follows the JAX package. `pixel_norm`,
+`minibatch_stddev_stat` and `bias_lrelu_gain` are `custom_jvp`s there, so
+their backward here is written in differentiable torch ops
+(`pallas_kernels.py:80-90`, `:293-300` and `:133-141`): R1's double
+backward, which runs through D's minibatch-stddev, composes.
+`lrelu_pixel_norm` is a `custom_vjp` there, first order only (G is
 differentiated once), so its backward is the backward kernel, marked
 `once_differentiable`.
 
@@ -26,11 +28,15 @@ Layout: the normalised axis is the channel axis. A 2-D input is a contiguous
 memory, whose bytes are the NHWC rows [B·H·W, C] the row kernels read. The
 minibatch-stddev kernel reads one contiguous row of F = C·H·W values per
 sample (a channels_last or contiguous 4-D tensor, or a contiguous 2-D one).
+The bias-act kernel reads any tensor whose channel axis (`dim`) is innermost
+in memory and whose other axes are dense: a contiguous [B, C] or
+channels_last [B, C, H, W] tensor with dim 1, or a contiguous one with dim -1.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -38,10 +44,11 @@ from torch.autograd.function import once_differentiable
 from pggan_tpu_torch.ops import _build
 
 EPS = 1e-8
+SQRT2 = math.sqrt(2.0)
 
 # Kernel launches per CUDA entry point since the last `reset_launch_counts()`.
 launches = {"pixel_norm": 0, "lrelu_pixel_norm": 0, "lrelu_pixel_norm_bwd": 0,
-            "minibatch_stddev_stat": 0}
+            "minibatch_stddev_stat": 0, "bias_lrelu_gain": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -122,6 +129,25 @@ def minibatch_stddev_stat_plain(x: torch.Tensor, sg: int,
     return torch.sqrt(var + eps).mean(dim=-1)
 
 
+def along(b: torch.Tensor, ndim: int, dim: int) -> torch.Tensor:
+    """The [C] vector b viewed to broadcast along axis `dim` of an ndim-D tensor."""
+    shape = [1] * ndim
+    shape[dim] = b.shape[0]
+    return b.reshape(shape)
+
+
+def bias_lrelu_gain_plain(x: torch.Tensor, b: Optional[torch.Tensor] = None,
+                          slope: float = 0.2, gain: float = SQRT2,
+                          dim: int = 1) -> torch.Tensor:
+    """leaky_relu(x + b, slope) · gain with b broadcast along `dim`; math in
+    f32, one rounding to x's dtype (`_bias_lrelu_kernel`,
+    `pallas_kernels.py:97-100`). b None is a zero bias."""
+    z = x.float()
+    if b is not None:
+        z = z + along(b.float(), x.ndim, dim)
+    return (torch.where(z >= 0, z, z * slope) * gain).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # kernel launch
 # ---------------------------------------------------------------------------
@@ -170,6 +196,25 @@ def kernel_samples(x: torch.Tensor, sg: int) -> Tuple[int, int]:
             f"strides {x.stride()} for shape {tuple(x.shape)}")
     n = x.shape[0]
     return n, x.numel() // n
+
+
+def kernel_channels(x: torch.Tensor, dim: int = 1) -> Tuple[int, int]:
+    """Check that the bias-act kernel takes `x` as it is, with its channel
+    axis at `dim`; return (elements, channels). The channel axis must be
+    innermost in memory and the other axes dense (`x.movedim(dim, -1)` is
+    contiguous). Reads only metadata; raises on dtype, rank or layout."""
+    _check_dtype(x)
+    if x.ndim < 2:
+        raise ValueError(f"expected a tensor of 2 or more dims, got shape {tuple(x.shape)}")
+    if not x.movedim(dim, -1).is_contiguous():
+        raise ValueError(
+            f"the channel axis (dim {dim}) must be innermost in memory and the others "
+            f"dense (channels_last for a 4-D tensor with dim 1); got strides "
+            f"{x.stride()} for shape {tuple(x.shape)}")
+    cols = x.shape[dim]
+    if cols == 0:
+        raise ValueError("the channel axis is empty")
+    return x.numel(), cols
 
 
 def _cuda_or_raise(name: str, x: torch.Tensor) -> None:
@@ -245,6 +290,25 @@ def _minibatch_stddev_stat_fwd(x: torch.Tensor, sg: int, eps: float) -> torch.Te
     return out
 
 
+def _bias_lrelu_gain_fwd(x: torch.Tensor, b: Optional[torch.Tensor], slope: float,
+                         gain: float, dim: int) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return bias_lrelu_gain_plain(x, b, slope, gain, dim)
+    n, cols = kernel_channels(x, dim)
+    if b is not None and (b.shape != (cols,) or b.dtype not in (torch.float32, x.dtype)
+                          or b.device != x.device or not b.is_contiguous()):
+        raise ValueError(
+            f"b must be a contiguous [{cols}] float32 or {x.dtype} vector on {x.device}; "
+            f"got {tuple(b.shape)} {b.dtype} on {b.device}")
+    _cuda_or_raise("bias_lrelu_gain", x)
+    y = torch.empty_like(x)            # x is dense, so y gets x's strides
+    _call("bias_lrelu_gain", "pggan_bias_lrelu_gain", x.device, x.data_ptr(),
+          None if b is None else b.data_ptr(), y.data_ptr(), n, cols,
+          _DTYPE_CODES[x.dtype], 0 if b is None else _DTYPE_CODES[b.dtype],
+          float(slope), float(gain))
+    return y
+
+
 # ---------------------------------------------------------------------------
 # autograd rules
 # ---------------------------------------------------------------------------
@@ -311,6 +375,29 @@ class _MinibatchStddevStat(torch.autograd.Function):
         return _minibatch_stddev_vjp(x, ctx.sg, ctx.eps, g), None, None
 
 
+class _BiasLreluGain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, b, slope, gain, dim):
+        ctx.save_for_backward(x, b)
+        ctx.slope, ctx.gain, ctx.dim = slope, gain, dim
+        return _bias_lrelu_gain_fwd(x, b, slope, gain, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # The transpose of `_bias_lrelu_jvp` (`pallas_kernels.py:133-141`) in
+        # differentiable torch ops: the mask is formed in x's dtype, as the
+        # JVP forms it, and dx = where(z >= 0, g·gain, g·gain·slope).
+        x, b = ctx.saved_tensors
+        z = x if b is None else x + along(b, x.ndim, ctx.dim).to(x.dtype)
+        gg = g * ctx.gain
+        dx = torch.where(z >= 0, gg, gg * ctx.slope)
+        db = None
+        if b is not None:
+            axes = [d for d in range(x.ndim) if d != ctx.dim % x.ndim]
+            db = dx.sum(dim=axes, dtype=b.dtype)
+        return dx.to(x.dtype), db, None, None, None
+
+
 def pixel_norm(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     """Pixel normalisation over the channel axis (`pallas_kernels.pixel_norm`)."""
     return _PixelNorm.apply(x, float(eps))
@@ -326,3 +413,12 @@ def minibatch_stddev_stat(x: torch.Tensor, sg: int, eps: float = EPS) -> torch.T
     """The per-group statistic [N // sg], f32
     (`pallas_kernels.minibatch_stddev_stat`; the caller picks sg)."""
     return _MinibatchStddevStat.apply(x, int(sg), float(eps))
+
+
+def bias_lrelu_gain(x: torch.Tensor, b: Optional[torch.Tensor] = None,
+                    slope: float = 0.2, gain: float = SQRT2,
+                    dim: int = 1) -> torch.Tensor:
+    """leaky_relu(x + b, slope) · gain, b broadcast along the channel axis
+    `dim` (`pallas_kernels.bias_lrelu_gain`); b None is a zero bias.
+    Differentiable to any order."""
+    return _BiasLreluGain.apply(x, b, float(slope), float(gain), int(dim))

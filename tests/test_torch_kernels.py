@@ -67,8 +67,11 @@ def test_cpu_wrappers_run_plain_and_launch_nothing():
     assert torch.equal(kernels.pixel_norm(x), kernels.pixel_norm_plain(x))
     assert torch.equal(kernels.lrelu_pixel_norm(x, 0.2),
                        kernels.lrelu_pixel_norm_plain(x, 0.2))
+    assert torch.equal(kernels.bias_lrelu_gain(x, None, 0.2),
+                       kernels.bias_lrelu_gain_plain(x, None, 0.2))
     assert set(kernels.launches) == {"pixel_norm", "lrelu_pixel_norm",
-                                     "lrelu_pixel_norm_bwd", "minibatch_stddev_stat"}
+                                     "lrelu_pixel_norm_bwd", "minibatch_stddev_stat",
+                                     "bias_lrelu_gain"}
     assert all(n == 0 for n in kernels.launches.values())
 
 
@@ -208,6 +211,15 @@ def _meta(fmt=torch.channels_last, dtype=torch.float32):
     (lambda: kernels.lrelu_pixel_norm_bwd(_meta(), _meta(dtype=torch.bfloat16)),
      ValueError, "g must match"),
     (lambda: kernels.lrelu_pixel_norm_bwd(_meta(), _meta()), ValueError, "no kernel"),
+    (lambda: kernels.bias_lrelu_gain(_meta(torch.contiguous_format)), ValueError,
+     "innermost"),
+    (lambda: kernels.bias_lrelu_gain(_meta(dtype=torch.float16)), TypeError, "float32"),
+    (lambda: kernels.bias_lrelu_gain(_meta(), torch.zeros(3, device="meta")), ValueError,
+     "b must be"),
+    (lambda: kernels.bias_lrelu_gain(
+        _meta(), torch.zeros(4, device="meta", dtype=torch.float16)), ValueError, "b must be"),
+    (lambda: kernels.bias_lrelu_gain(_meta(), torch.zeros(4, device="meta")), ValueError,
+     "no kernel"),
 ])
 def test_new_kernels_refuse(call, error, match):
     """Wrong group sizes, layouts and dtypes raise, and so does a device
@@ -215,3 +227,69 @@ def test_new_kernels_refuse(call, error, match):
     tensors reach the launch checks without a card)."""
     with pytest.raises(error, match=match):
         call()
+
+
+BIAS_SHAPES = [(4, 8, 8, 64), (8, 32), (2, 4, 4, 513), (2, 3, 3, 16)]
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("shape", BIAS_SHAPES)
+def test_bias_lrelu_gain_plain_matches_pallas(shape, with_bias):
+    """The plain version (the CPU path of `bias_lrelu_gain`) against the
+    Pallas kernel in interpret mode, with a bias and with b None."""
+    x = _rand(shape, seed=40 + shape[-1])
+    b = _rand((shape[-1],), seed=41) if with_bias else None
+    want = np.asarray(pk.bias_lrelu_gain(jnp.asarray(x), None if b is None else jnp.asarray(b)))
+    got = kernels.bias_lrelu_gain(_to_torch(x), None if b is None else torch.from_numpy(b))
+    np.testing.assert_allclose(_to_numpy(got), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape, dim, want", [
+    ((2, 3, 3, 16), 1, (288, 16)), ((8, 32), 1, (256, 32)), ((2, 5, 6), -1, (60, 6))])
+def test_kernel_channels_accepts_innermost_channel_axis(shape, dim, want):
+    """A channels_last tensor or a [B, C] one with dim 1, a contiguous one
+    with dim -1: the bias-act kernel reads each in place."""
+    x = _to_torch(np.zeros(shape, np.float32)) if dim == 1 else torch.zeros(shape)
+    assert kernels.kernel_channels(x, dim) == want
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_bias_lrelu_gain_derivatives_match_jax(with_bias):
+    """First (x, b) and second derivatives through the port's autograd rule
+    (the kernel forward, a torch-ops backward) against jax.grad of the
+    Pallas op's custom_jvp (`_bias_lrelu_core`), for
+    L = sum(w · y²) and then sum(v · dL/dx) + sum(u · dL/db)."""
+    shape = (2, 3, 3, 16)
+    x, w, v = (_rand(shape, seed=s) for s in (50, 51, 52))
+    b, u = _rand((16,), seed=53), _rand((16,), seed=54)
+    if not with_bias:
+        b = np.zeros_like(b)
+
+    def jax_loss(xa, ba):
+        y = pk._bias_lrelu_core(xa, ba, 0.2, float(np.sqrt(2.0)))
+        return jnp.sum(jnp.asarray(w) * y ** 2)
+
+    def jax_second(xa, ba):
+        gx, gb = jax.grad(jax_loss, argnums=(0, 1))(xa, ba)
+        return jnp.sum(jnp.asarray(v) * gx) + (jnp.sum(jnp.asarray(u) * gb) if with_bias
+                                               else 0.0)
+    want1 = jax.grad(jax_loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(b))
+    want2 = jax.grad(jax_second, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(b))
+
+    xt = _to_torch(x.copy()).requires_grad_(True)
+    bt = torch.from_numpy(b.copy()).requires_grad_(True) if with_bias else None
+    inputs = (xt, bt) if with_bias else (xt,)
+    y = kernels.bias_lrelu_gain(xt, bt)
+    g1 = torch.autograd.grad((_to_torch(w) * y.square()).sum(), inputs, create_graph=True)
+    second = (_to_torch(v) * g1[0]).sum()
+    if with_bias:
+        second = second + (torch.from_numpy(u) * g1[1]).sum()
+    g2 = torch.autograd.grad(second, inputs)
+    np.testing.assert_allclose(_to_numpy(g1[0].detach()), np.asarray(want1[0]),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(_to_numpy(g2[0]), np.asarray(want2[0]), rtol=1e-5, atol=1e-6)
+    if with_bias:
+        # db sums dx over 18 rows: rtol 1e-5, atol 1e-5
+        np.testing.assert_allclose(g1[1].detach().numpy(), np.asarray(want1[1]),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(g2[1].numpy(), np.asarray(want2[1]), rtol=1e-5, atol=1e-5)

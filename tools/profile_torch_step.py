@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's train step (or sampling forward)
-goes, on one CUDA card.
+"""Where the time of the PyTorch port's train step (or sampling forward, or
+filtered_lrelu) goes, on one CUDA card.
 
     python3 tools/profile_torch_step.py [--dtype bfloat16|float32]
-        [--tf32] [--cudnn_benchmark] [--no_r1 | --forward] [--steps 3]
-        [--top 15]
+        [--tf32] [--cudnn_benchmark] [--no_r1 | --forward | --filtered_lrelu]
+        [--steps 3] [--top 15]
 
 Builds G and D at scale 6 (256×256) at the full width of configs.yaml from
 their seeded initialisation, runs 2 warm-up steps, then profiles `--steps`
 train steps at batch 16 with `torch.profiler` (CPU and CUDA activities).
 Prints the wall time per step, the device's busy time per step (the union
 of the kernels' intervals) and idle share, the kernel time summed over
-streams, the launches of the port's four kernels, and the kernels that took
+streams, the launches of the port's kernels, and the kernels that took
 the most time (with their share of the summed kernel time).
 `--cudnn_benchmark` lets cuDNN time its algorithms at the first call of each
 shape (the warm-up steps) instead of choosing by heuristics. `--forward`
-profiles G's sampling forward at batch 16 (no gradient) instead of the step.
+profiles G's sampling forward at batch 16 (no gradient) instead of the step;
+`--filtered_lrelu` profiles `ops.filtered_lrelu` at [16, 64, 256, 256] with a
+bias, [1,3,3,1] filters, up 2, down 2 and padding 3 (the ops path's largest
+call in chip_smoke.py's phase 11).
 Needs a card; imports nothing of JAX.
 """
 
@@ -42,8 +45,11 @@ def main(argv=None) -> int:
                         help="torch.backends.cudnn.benchmark = True")
     parser.add_argument("--no_r1", action="store_true",
                         help="the step without R1 (the tail of a lazy window)")
-    parser.add_argument("--forward", action="store_true",
-                        help="G's sampling forward instead of the train step")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--forward", action="store_true",
+                      help="G's sampling forward instead of the train step")
+    mode.add_argument("--filtered_lrelu", action="store_true",
+                      help="ops.filtered_lrelu at [16,64,256,256] instead of the step")
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--top", type=int, default=15)
     ns = parser.parse_args(argv)
@@ -61,25 +67,36 @@ def main(argv=None) -> int:
     torch.backends.cudnn.benchmark = ns.cudnn_benchmark
     cfg = Config.from_yaml(os.path.join(REPO, "configs.yaml"))
     cfg.update(compute_dtype=ns.dtype, batch_per_gpu=BATCH)
-    trainer = ProgressiveGANTrainer(cfg, device="cuda")
-    trainer.schedule.scale_index = SCALE
-    trainer.initialize_models()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if ns.forward:
-        G = trainer.state.G
-        z = torch.randn((BATCH, int(cfg.latent_dim)), generator=gen, device="cuda")
-        dt = torch.bfloat16 if ns.dtype == "bfloat16" else torch.float32
+    dt = torch.bfloat16 if ns.dtype == "bfloat16" else torch.float32
+    if ns.filtered_lrelu:
+        from pggan_tpu_torch import ops
+        x = torch.randn((BATCH, 256, 256, 64), generator=gen, device="cuda").to(dt)
+        x = x.permute(0, 3, 1, 2)                          # channels_last
+        b = torch.randn((64,), generator=gen, device="cuda")
+        f = ops.setup_filter([1, 3, 3, 1])
 
         def run():
             with torch.no_grad():
-                G(z, ALPHA, compute_dtype=dt)
+                ops.filtered_lrelu(x, f, f, b, up=2, down=2, padding=3)
     else:
-        step = make_train_step(cfg, SCALE, include_r1=not ns.no_r1)
-        batch = torch.randint(0, 256, (BATCH, 256, 256, 3), generator=gen,
-                              device="cuda", dtype=torch.uint8)
+        trainer = ProgressiveGANTrainer(cfg, device="cuda")
+        trainer.schedule.scale_index = SCALE
+        trainer.initialize_models()
+        if ns.forward:
+            G = trainer.state.G
+            z = torch.randn((BATCH, int(cfg.latent_dim)), generator=gen, device="cuda")
 
-        def run():
-            step(trainer.state, batch, ALPHA)
+            def run():
+                with torch.no_grad():
+                    G(z, ALPHA, compute_dtype=dt)
+        else:
+            step = make_train_step(cfg, SCALE, include_r1=not ns.no_r1)
+            batch = torch.randint(0, 256, (BATCH, 256, 256, 3), generator=gen,
+                                  device="cuda", dtype=torch.uint8)
+
+            def run():
+                step(trainer.state, batch, ALPHA)
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -119,6 +136,7 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]
     what = ("sampling forward" if ns.forward else
+            "filtered_lrelu [16,64,256,256] up 2 down 2" if ns.filtered_lrelu else
             f"train step {'without R1' if ns.no_r1 else 'with R1'}")
     label = (f"{ns.dtype}{' TF32' if ns.tf32 else ''}"
              f"{' cudnn.benchmark' if ns.cudnn_benchmark else ''}")
