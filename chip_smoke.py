@@ -8,7 +8,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   2. build the CUDA kernels from pggan_tpu_torch/csrc with nvcc, one
      process per source, all at once (timed);
   3. each forward kernel against its plain PyTorch version on the card, f32
-     and bf16, at the sampling path's shapes and at ragged ones;
+     and bf16, at the sampling path's shapes and at shapes that reach every
+     branch of the row kernels (the vector branch at several lane and
+     vector counts; the generic branch for rows that are not a multiple of
+     16 bytes, rows over the cap, and [B, C] views whose pointer is not
+     16-byte aligned), with the branch each input took and the output's
+     strides;
   4. the sampling slice at the full width of configs.yaml: write a scale-6
      (256×256) G checkpoint in the JAX package's npz format (numpy-seeded
      weights, alpha 0.5), run `pggan_tpu_torch.demo` for 32 images at batch
@@ -16,8 +21,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      lrelu_pixel_norm per forward);
   5. the full-width forward with the kernels against the same forward with
      the plain versions, and a small generator on the card against the CPU;
-  6. times on the card: sampling img/s, each kernel against its plain
-     version, the fused upscale+conv against conv(upscale2d(x)), peak memory;
+  6. times on the card: sampling img/s; each kernel's call time (eager
+     calls) and device time (calls captured in a CUDA graph and replayed)
+     against its plain version, pixel_norm also against F.rms_norm; where
+     the host time of a small pixel_norm call goes (checks, allocation,
+     launch, glue); the fused upscale+conv against conv(upscale2d(x)); peak
+     memory;
   7. the backward kernel of lrelu_pixel_norm and the minibatch-stddev kernel
      against their plain versions, f32 and bf16, at the train path's shapes
      and ragged ones, and the first and second derivatives of the
@@ -32,8 +41,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      step with the plain versions, from the same state and latents: losses
      and Adam's first moments (= the gradients, β1 = 0);
  10. times on the card: the R1 step and the step without R1, each in bf16,
-     f32 with TF32 off and f32 with TF32 on; peak memory; the new kernels
-     against their plain versions; pixel_norm against F.rms_norm;
+     f32 with TF32 off and f32 with TF32 on; peak memory; the train path's
+     kernels against their plain versions (call and device time);
  11. the StyleGAN2-ops path (`pggan_tpu_torch.ops`): the bias_lrelu_gain
      kernel against its plain version (f32 and bf16, the epilogue shapes and
      ragged ones, with and without a bias) and its rule's first and second
@@ -101,10 +110,20 @@ STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-5, 2e-3
 # pairs, the filtered_lrelu shapes (the two top blocks of the 256² model at
 # batch 16) and bias_act's activations.
 RAGGED = [(2, 3, 3, 16), (2, 4, 4, 513), (2, 4, 4, 96)]
+# Phase 3 also holds every branch of the forward row kernels: the vector
+# branch at each row width (C = 16 and 96 with a lane count under 32 and
+# part-filled lanes; 1024 f32 and 2048 bf16 at the cap of 8 vectors a lane;
+# C = 4 f32, one vector a row) and the generic one (C = 513, bf16 C = 4, C
+# = 2048 f32 over the cap, and MISALIGNED [B, C] views).
+BRANCH_SHAPES = RAGGED + [(2, 3, 3, 4), (2, 2, 2, 1024), (2, 2, 2, 2048)]
+MISALIGNED = [(BATCH, 512), (BATCH, 64)]
 BIAS_PARAMS = ((0.2, math.sqrt(2.0)), (0.1, 1.0))
 OPS_SHAPES = [(BATCH, 128, 128, 128), (BATCH, 256, 256, 64)]
 ACTIVATIONS = ("linear", "relu", "lrelu", "tanh", "sigmoid", "elu", "selu", "softplus",
                "swish")
+# Call times of inputs of at most SMALL_NUMEL elements (host-bound
+# launches) are means over SMALL_ITERS calls, not 20.
+SMALL_NUMEL, SMALL_ITERS = BATCH * 4 * 4 * 512, 200
 # H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s off
 # the tensor cores.
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
@@ -137,11 +156,59 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def abba_ms(plain, kernel, iters: int = 20):
-    """Times in turns (plain, kernel, kernel, plain); mean of each pair."""
-    p1, k1, k2, p2 = (time_ms(plain, iters), time_ms(kernel, iters),
-                      time_ms(kernel, iters), time_ms(plain, iters))
-    return (p1 + p2) / 2, (k1 + k2) / 2
+def abba_ms(*fns, iters: int = 20):
+    """Times in turns, each function in order and then in reverse order
+    (plain, kernel, kernel, plain); the mean of each function's pair."""
+    first = [time_ms(fn, iters) for fn in fns]
+    second = [time_ms(fn, iters) for fn in reversed(fns)][::-1]
+    return [(a + b) / 2 for a, b in zip(first, second)]
+
+
+def device_ms(fn, kernels=None, name=None, calls: int = 20, replays: int = 5,
+              groups: int = 3) -> float:
+    """The device time of one call: `calls` calls captured in one CUDA graph
+    (after warm-up on a side stream), `replays` replays of it timed with
+    CUDA events, so no host work sits between the launches; the best of
+    `groups` such timings, after 3 untimed replays (the card may have
+    lowered its clock while the host-bound calls before left it idle). A
+    wrapper launches on the current stream, which is the capture stream
+    while capturing, so its launches are captured. Checks that the launch
+    count of `name` moved once per captured call and not during the
+    replays, and that the replayed graph wrote what the call computes
+    eagerly: the last captured output is set to NaN before the replays, so
+    a launch made outside the graph would leave it NaN."""
+    want = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.launches[name] if name else 0
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            out = fn()
+    if name:
+        check(kernels.launches[name] - before == calls,
+              f"{name}: {kernels.launches[name] - before} launches in a capture of {calls} calls")
+    out.fill_(float("nan"))
+    for _ in range(3):
+        graph.replay()
+    best = float("inf")
+    for _ in range(groups):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / (replays * calls))
+    if name:
+        check(kernels.launches[name] - before == calls, f"{name}: launched during a replay")
+    check(torch.equal(out, want), f"{name or 'call'}: the replayed graph's output differs "
+                                  f"from the eager call's")
+    return best
 
 
 @contextlib.contextmanager
@@ -244,24 +311,46 @@ def card_line() -> str:
     return smi.splitlines()[0]
 
 
+def misaligned_rows(shape, dtype, gen):
+    """A random contiguous [B, C] view that starts one element into its
+    storage, so its pointer is not 16-byte aligned."""
+    flat = torch.randn(shape[0] * shape[1] + 1, generator=gen, device=DEVICE).to(dtype)
+    return flat[1:].view(shape)
+
+
 def check_kernels(kernels, shapes, gen):
-    """Phase 3: every forward kernel against its plain version, f32 and bf16.
+    """Phase 3: every forward kernel against its plain version, f32 and bf16,
+    at `shapes` (NHWC or [B, C]) and at MISALIGNED [B, C] views one element
+    into their storage; each input's branch as the C side picks it. Checks
+    that the widths of configs.yaml take the vector branch and the
+    misaligned views, C = 513 and bf16 rows under 16 bytes the generic one.
     Returns {kernel: {dtype: max |diff|}}."""
     max_err = {name: {dt: 0.0 for dt in TOL} for name in FORWARD_KERNELS}
+    branches = {}
+    cases = [(shape, False) for shape in shapes] + [(s, True) for s in MISALIGNED]
     with torch.no_grad():
-        for shape in shapes:
-            for dt, tol in TOL.items():
-                x = nhwc(shape, dt, gen)
-                for name in FORWARD_KERNELS:
-                    got = getattr(kernels, name)(x)
-                    want = getattr(kernels, name + "_plain")(x)
-                    torch.cuda.synchronize()
-                    torch.testing.assert_close(
-                        got, want, **tol, msg=lambda m: f"{name} {shape} {dt}: {m}")
-                    check(got.ndim == 2 or got.is_contiguous(
-                        memory_format=torch.channels_last), f"{name} {shape}: layout")
-                    err = float((got.float() - want.float()).abs().max())
-                    max_err[name][dt] = max(max_err[name][dt], err)
+        for (shape, shifted), (dt, tol) in itertools.product(cases, TOL.items()):
+            x = misaligned_rows(shape, dt, gen) if shifted else nhwc(shape, dt, gen)
+            plan = kernels.row_kernel_plan(x)
+            label = f"{list(shape)}{' +1' if shifted else ''} {str(dt)[6:]}"
+            branches[label] = plan
+            row_bytes = shape[-1] * x.element_size()
+            if shifted or row_bytes % 16 or row_bytes > 4096:
+                check(plan == (0, 0), f"{label}: expected the generic branch, got {plan}")
+            elif shape[-1] in (64, 128, 256, 512):
+                check(plan != (0, 0), f"{label}: expected the vector branch")
+            for name in FORWARD_KERNELS:
+                got = getattr(kernels, name)(x)
+                want = getattr(kernels, name + "_plain")(x)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(
+                    got, want, **tol, msg=lambda m: f"{name} {label}: {m}")
+                check(got.stride() == want.stride(), f"{name} {label}: strides "
+                      f"{got.stride()}, plain {want.stride()}")
+                err = float((got.float() - want.float()).abs().max())
+                max_err[name][dt] = max(max_err[name][dt], err)
+    print("[3 kernels] branches (lanes a row, 16-byte vectors a lane; (0, 0) = generic): "
+          + ", ".join(f"{k} {v}" for k, v in branches.items()))
     return max_err
 
 
@@ -357,28 +446,96 @@ def time_sampling(kernels, generator, z, alpha, card):
 
 
 def time_kernels(kernels, path_shapes, gen, card):
-    """Phase 6b: each kernel against its plain version at pixel_norm's 4-D
-    path shape and the three largest epilogue shapes.
-    Returns {(kernel, shape, dtype): (kernel ms, plain ms)}."""
-    times = {}
-    timed = [("pixel_norm", (BATCH, 4, 4, 512))] + [
+    """Phase 6b: each kernel against its plain version at pixel_norm's two
+    path shapes and the three largest epilogue shapes: the call time (eager
+    calls, host work included) and the device time (`device_ms`); pixel_norm
+    also against F.rms_norm, the one PyTorch call that computes its
+    function, in the same turns. Returns {(kernel, shape, dtype): (call ms,
+    device ms, plain ms)} and {(shape, dtype): (F.rms_norm call ms, device
+    ms)} at pixel_norm's 4-D shapes."""
+    import torch.nn.functional as F
+
+    times, rms = {}, {}
+    timed = [("pixel_norm", (BATCH, 512)), ("pixel_norm", (BATCH, 4, 4, 512))] + [
         (name, shape) for name in FORWARD_KERNELS
         for shape in sorted(set(path_shapes), key=np.prod)[-3:]]
     for name, shape in timed:
         for dt in (torch.float32, torch.bfloat16):
             x = nhwc(shape, dt, gen)
-            plain_ms, kernel_ms = abba_ms(lambda: getattr(kernels, name + "_plain")(x),
-                                          lambda: getattr(kernels, name)(x))
-            gbps = 2 * x.numel() * x.element_size() / (kernel_ms * 1e-3) / 1e9
-            times[(name, shape, dt)] = (kernel_ms, plain_ms)
-            print(f"[6 times] {name} {list(shape)} {str(dt)[6:]}: kernel "
-                  f"{kernel_ms:.4f} ms ({gbps:.0f} GB/s of one read + one write), "
-                  f"plain {plain_ms:.4f} ms ({card})")
-    return times
+            fns = [lambda: getattr(kernels, name + "_plain")(x),
+                   lambda: getattr(kernels, name)(x)]
+            with_rms = name == "pixel_norm" and len(shape) == 4
+            if with_rms:
+                # the same NHWC rows as a contiguous [..., C] tensor
+                x_rows = x.permute(0, 2, 3, 1)
+                fns.append(lambda: F.rms_norm(x_rows, [shape[-1]], eps=1e-8))
+            # host-bound calls: more of them, so a hiccup of the host's clock
+            # weighs less
+            iters = SMALL_ITERS if x.numel() <= SMALL_NUMEL else 20
+            plain_ms, kernel_ms, *rms_turns = abba_ms(*fns, iters=iters)
+            kernel_dev = device_ms(fns[1], kernels, name)
+            gbps = 2 * x.numel() * x.element_size() / (kernel_dev * 1e-3) / 1e9
+            times[(name, shape, dt)] = (kernel_ms, kernel_dev, plain_ms)
+            line = (f"[6 times] {name} {list(shape)} {str(dt)[6:]}: kernel call "
+                    f"{kernel_ms:.4f} ms, device {kernel_dev:.4f} ms ({gbps:.0f} GB/s of "
+                    f"one read + one write); plain call {plain_ms:.4f} ms")
+            if with_rms:
+                rms_call, rms_dev = rms[(shape, dt)] = (rms_turns[0], device_ms(fns[2]))
+                err = float((fns[2]().permute(0, 3, 1, 2).float() - fns[1]().float())
+                            .abs().max())
+                line += (f"; F.rms_norm call {rms_call:.4f} ms, device {rms_dev:.4f} ms "
+                         f"(max |diff| to the kernel {err:.3g})")
+            print(f"{line} ({card})")
+    return times, rms
+
+
+def host_us(fn, calls: int = 2000, loops: int = 5) -> float:
+    """Host time of one call in µs by the host clock: the best of `loops`
+    loops of `calls` calls, each loop then waited for on the card. For a
+    call whose host work outlasts its kernel, this is the call time without
+    the card's timing in the way."""
+    best = float("inf")
+    for _ in range(loops + 1):                   # the first loop warms up
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return best
+
+
+def time_launch_path(kernels, gen, card):
+    """Phase 6c: where the host time of one pixel_norm call at [16,4,4,512]
+    f32 goes (a launch-bound call: its kernel takes ~2 µs), beside
+    F.rms_norm's: the whole call, and of it the checks (`kernel_rows`), the
+    output's allocation and the launch (ctypes into the C entry point and
+    its cudaLaunchKernel); the rest is Python glue. The launch is timed by
+    calling the C entry point directly, outside the wrapper, so it is not
+    counted."""
+    import torch.nn.functional as F
+    from pggan_tpu_torch.ops import _build
+
+    x = nhwc((BATCH, 4, 4, 512), torch.float32, gen)
+    x_rows, y = x.permute(0, 2, 3, 1), torch.empty_like(x)
+    rows, cols = kernels.kernel_rows(x)
+    entry = _build.load_library().pggan_pixel_norm_fwd
+    stream = torch.cuda.current_stream().cuda_stream
+    parts = {"whole call": lambda: kernels.pixel_norm(x),
+             "checks": lambda: kernels.kernel_rows(x),
+             "allocation": lambda: torch.empty_like(x),
+             "launch": lambda: entry(x.data_ptr(), y.data_ptr(), rows, cols, 0, 1e-8,
+                                     stream)}
+    us = {label: host_us(fn) for label, fn in parts.items()}
+    rms_us = host_us(lambda: F.rms_norm(x_rows, [512], eps=1e-8))
+    glue = us["whole call"] - us["checks"] - us["allocation"] - us["launch"]
+    print(f"[6 host] pixel_norm [16, 4, 4, 512] float32, host µs a call (best of 5 loops of "
+          f"2000 calls): {us['whole call']:.2f} = checks {us['checks']:.2f} + allocation "
+          f"{us['allocation']:.2f} + launch (ctypes, C entry point, cudaLaunchKernel) "
+          f"{us['launch']:.2f} + Python glue {glue:.2f}; F.rms_norm {rms_us:.2f} ({card})")
 
 
 def time_block_heads(generator, depths, gen, card):
-    """Phase 6c: each block's conv0, the dilated form against
+    """Phase 6d: each block's conv0, the dilated form against
     conv(upscale2d(x)). Tolerance f32 1e-3 (TF32 off; sums of up to 4608
     products in another order); bf16 0.25 (the merged taps are rounded to
     bf16 once, the plain form rounds each tap, on outputs up to ~10)."""
@@ -634,37 +791,31 @@ def time_train(step_mod, kernels, cfg, arrays_g, arrays_d, gen, card):
 
 
 def time_train_kernels(kernels, gen, card):
-    """Phase 10b: the new kernels at their largest path shapes against their
-    plain versions, and pixel_norm against F.rms_norm (the one PyTorch call
-    that computes the same function; no call computes the other three).
-    Returns {(kernel, dtype): (kernel ms, plain ms)} and rms_norm's ms."""
-    import torch.nn.functional as F
-
+    """Phase 10b: the train path's kernels at their largest path shapes
+    against their plain versions (no one PyTorch call computes either):
+    call time and device time. Returns {(kernel, dtype): (call ms, device
+    ms, plain ms)}."""
     times = {}
     for dt in (torch.float32, torch.bfloat16):
         x, g = nhwc((BATCH, 256, 256, 64), dt, gen), nhwc((BATCH, 256, 256, 64), dt, gen)
-        plain_ms, kernel_ms = abba_ms(lambda: kernels.lrelu_pixel_norm_bwd_plain(x, g),
-                                      lambda: kernels.lrelu_pixel_norm_bwd(x, g))
-        times[("lrelu_pixel_norm_bwd", dt)] = (kernel_ms, plain_ms)
-        gbps = 3 * x.numel() * x.element_size() / (kernel_ms * 1e-3) / 1e9
+        kernel = lambda: kernels.lrelu_pixel_norm_bwd(x, g)  # noqa: E731
+        plain_ms, kernel_ms = abba_ms(lambda: kernels.lrelu_pixel_norm_bwd_plain(x, g), kernel)
+        kernel_dev = device_ms(kernel, kernels, "lrelu_pixel_norm_bwd")
+        times[("lrelu_pixel_norm_bwd", dt)] = (kernel_ms, kernel_dev, plain_ms)
+        gbps = 3 * x.numel() * x.element_size() / (kernel_dev * 1e-3) / 1e9
         print(f"[10 times] lrelu_pixel_norm_bwd [16,256,256,64] {str(dt)[6:]}: kernel "
-              f"{kernel_ms:.4f} ms ({gbps:.0f} GB/s of two reads + one write), plain "
-              f"{plain_ms:.4f} ms ({card})")
+              f"call {kernel_ms:.4f} ms, device {kernel_dev:.4f} ms ({gbps:.0f} GB/s of two "
+              f"reads + one write); plain call {plain_ms:.4f} ms ({card})")
         m = nhwc((BATCH, 4, 4, 512), dt, gen)
-        plain_ms, kernel_ms = abba_ms(lambda: kernels.minibatch_stddev_stat_plain(m, 4),
-                                      lambda: kernels.minibatch_stddev_stat(m, 4))
-        times[("minibatch_stddev_stat", dt)] = (kernel_ms, plain_ms)
+        kernel = lambda: kernels.minibatch_stddev_stat(m, 4)  # noqa: E731
+        plain_ms, kernel_ms = abba_ms(lambda: kernels.minibatch_stddev_stat_plain(m, 4), kernel,
+                                      iters=SMALL_ITERS)
+        kernel_dev = device_ms(kernel, kernels, "minibatch_stddev_stat")
+        times[("minibatch_stddev_stat", dt)] = (kernel_ms, kernel_dev, plain_ms)
         print(f"[10 times] minibatch_stddev_stat [16,4,4,512] sg 4 {str(dt)[6:]}: "
-              f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms ({card})")
-    x = nhwc((BATCH, 4, 4, 512), torch.float32, gen)
-    x_rows = x.permute(0, 2, 3, 1)
-    with torch.no_grad():
-        err = float((F.rms_norm(x_rows, [512], eps=1e-8).permute(0, 3, 1, 2)
-                     - kernels.pixel_norm(x)).abs().max())
-    rms_ms = time_ms(lambda: F.rms_norm(x_rows, [512], eps=1e-8))
-    print(f"[10 times] F.rms_norm [16,4,4,512] f32 (pixel_norm's function; max |diff| "
-          f"to the kernel {err:.3g}): {rms_ms:.4f} ms ({card})")
-    return times, rms_ms
+              f"kernel call {kernel_ms:.4f} ms, device {kernel_dev:.4f} ms; plain call "
+              f"{plain_ms:.4f} ms ({card})")
+    return times
 
 
 @contextlib.contextmanager
@@ -874,13 +1025,14 @@ def time_ops(kernels, ops, gen, card):
         for dt in (torch.float32, torch.bfloat16):
             x = nhwc(big, dt, gen)
             b = torch.randn((big[-1],), generator=gen, device=DEVICE)
-            plain_ms, kernel_ms = abba_ms(lambda: kernels.bias_lrelu_gain_plain(x, b),
-                                          lambda: kernels.bias_lrelu_gain(x, b))
-            times[("bias_lrelu_gain", dt)] = (kernel_ms, plain_ms)
-            gbps = 2 * x.numel() * x.element_size() / (kernel_ms * 1e-3) / 1e9
-            print(f"[11 times] bias_lrelu_gain {list(big)} {str(dt)[6:]}: kernel "
-                  f"{kernel_ms:.4f} ms ({gbps:.0f} GB/s of one read + one write), plain "
-                  f"{plain_ms:.4f} ms ({card})")
+            kernel = lambda: kernels.bias_lrelu_gain(x, b)  # noqa: E731
+            plain_ms, kernel_ms = abba_ms(lambda: kernels.bias_lrelu_gain_plain(x, b), kernel)
+            kernel_dev = device_ms(kernel, kernels, "bias_lrelu_gain")
+            times[("bias_lrelu_gain", dt)] = (kernel_ms, kernel_dev, plain_ms)
+            gbps = 2 * x.numel() * x.element_size() / (kernel_dev * 1e-3) / 1e9
+            print(f"[11 times] bias_lrelu_gain {list(big)} {str(dt)[6:]}: kernel call "
+                  f"{kernel_ms:.4f} ms, device {kernel_dev:.4f} ms ({gbps:.0f} GB/s of one "
+                  f"read + one write); plain call {plain_ms:.4f} ms ({card})")
         f = ops.setup_filter([1, 3, 3, 1], device=DEVICE)
         for shape in OPS_SHAPES:
             x = nhwc(shape, torch.float32, gen)
@@ -935,12 +1087,12 @@ def main() -> int:
     check(int(cfg.latent_dim) == 512 and depths == [512, 512, 512, 512, 256, 128, 64],
           f"configs.yaml is not the full-width model: {cfg.latent_dim}, {depths}")
     path_shapes = epilogue_shapes(depths, SCALE, BATCH)
-    shapes = [(BATCH, 512)] + sorted(set(path_shapes)) + [
-        (2, 3, 3, 16), (2, 4, 4, 513), (2, 4, 4, 96)]
+    shapes = [(BATCH, 512)] + sorted(set(path_shapes)) + BRANCH_SHAPES
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     max_err = check_kernels(kernels, shapes, gen)
     for name, errs in max_err.items():
-        print(f"[3 kernels] {name}: {len(shapes)} shapes match the plain version; "
+        print(f"[3 kernels] {name}: {len(shapes) + len(MISALIGNED)} inputs match the plain "
+              f"version; "
               f"max |diff| f32 {errs[torch.float32]:.3g} (rtol 1e-5, atol 1e-6), "
               f"bf16 {errs[torch.bfloat16]:.3g} (rtol 1.6e-2, atol 1e-2)")
 
@@ -950,11 +1102,14 @@ def main() -> int:
     z = torch.randn((BATCH, int(cfg.latent_dim)), generator=gen, device=DEVICE)
     check_forward(kernels, generator, z, alpha)
 
-    print(f"[6 times] card: {card}; CUDA events, mean over 20 calls (10 for a "
-          f"whole forward) after 3 warm-up, in (plain, kernel, kernel, plain) turns")
+    print(f"[6 times] card: {card}; call time: CUDA events, mean over 20 eager calls "
+          f"({SMALL_ITERS} for inputs of at most {SMALL_NUMEL} elements, 10 for a whole "
+          f"forward) after 3 warm-up, in (plain, kernel, kernel, plain) turns; device "
+          f"time: 20 calls captured in a CUDA graph, 5 replays")
     with torch.no_grad():
         time_sampling(kernels, generator, z, alpha, card)
-        times = time_kernels(kernels, path_shapes, gen, card)
+        times, rms = time_kernels(kernels, path_shapes, gen, card)
+        time_launch_path(kernels, gen, card)
         time_block_heads(generator, depths, gen, card)
 
     # ---- the training slice ----
@@ -972,7 +1127,7 @@ def main() -> int:
     compare_step(step_mod, kernels, equalized, step_cfg, arrays_g, arrays_d, gen)
     print(f"[10 times] card: {card}")
     time_train(step_mod, kernels, step_cfg, arrays_g, arrays_d, gen, card)
-    train_times, rms_ms = time_train_kernels(kernels, gen, card)
+    train_times = time_train_kernels(kernels, gen, card)
 
     # ---- the StyleGAN2-ops path ----
     from pggan_tpu_torch import ops
@@ -986,14 +1141,16 @@ def main() -> int:
 
     # Every kernel of the three paths at its largest f32 shape on them;
     # `launches` is the training run's count (the demo's is checked in
-    # phase 4), and bias_lrelu_gain's the ops path's (phase 11). Bounds: each
+    # phase 4), and bias_lrelu_gain's the ops path's (phase 11). `ms` is the
+    # call time, `device_ms` the device time in a CUDA graph. Bounds: each
     # input read once and each output written once at 3.35 TB/s, against a
     # few f32 operations per element at 67 TFLOP/s.
     rows, big = (BATCH, 4, 4, 512), (BATCH, 256, 256, 64)
     n_rows, n_big = int(np.prod(rows)), int(np.prod(big))
     entries = [
         ("pixel_norm", "norm_kernels.cu", ":57", rows,
-         times[("pixel_norm", rows, torch.float32)], 2 * n_rows * 4, 3 * n_rows, rms_ms),
+         times[("pixel_norm", rows, torch.float32)], 2 * n_rows * 4, 3 * n_rows,
+         rms[(rows, torch.float32)][0]),
         ("lrelu_pixel_norm", "norm_kernels.cu", ":179", big,
          times[("lrelu_pixel_norm", big, torch.float32)], 2 * n_big * 4, 4 * n_big, None),
         ("lrelu_pixel_norm_bwd", "norm_kernels.cu", ":186", big,
@@ -1008,14 +1165,16 @@ def main() -> int:
     ]
     path_launches = dict(train_launches, bias_lrelu_gain=ops_launches["bias_lrelu_gain"])
     report = []
-    for name, source, line, shape, (kernel_ms, plain_ms), nbytes, flops, lib_ms in entries:
+    for (name, source, line, shape, (kernel_ms, kernel_dev, plain_ms), nbytes, flops,
+         lib_ms) in entries:
         b_ms, b_by = bound_ms(nbytes, flops)
         report.append({"name": name, "route": "cuda",
                        "source": f"pggan_tpu_torch/csrc/{source}",
                        "replaces": f"pggan_tpu/ops/pallas_kernels.py{line}",
                        "launches": path_launches[name],
                        "max_abs_err": max_err[name][torch.float32],
-                       "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "ms": kernel_ms, "device_ms": kernel_dev,
+                       "plain_ms": plain_ms, "bound_ms": b_ms,
                        "bound_by": b_by, "library_ms": lib_ms,
                        "shape": list(shape), "dtype": "float32"})
     print(json.dumps({"kernels": report}))

@@ -41,6 +41,9 @@ _SIGNATURES = {
     "pggan_lrelu_pixel_norm_fwd": (_c_int, [_c_void_p, _c_void_p, _c_int64,
                                             _c_int, _c_int, _c_float, _c_float,
                                             _c_void_p]),
+    # x, y, cols, dtype -> lanes a row, vectors a lane (0, 0: generic branch)
+    "pggan_norm_rows_plan": (_c_int, [_c_void_p, _c_void_p, _c_int, _c_int,
+                                      ctypes.POINTER(_c_int), ctypes.POINTER(_c_int)]),
     # x, g, dx, rows, cols, dtype, slope, eps, stream
     "pggan_lrelu_pixel_norm_bwd": (_c_int, [_c_void_p, _c_void_p, _c_void_p,
                                             _c_int64, _c_int, _c_int, _c_float,
@@ -127,8 +130,11 @@ def _compile(pending: Dict[str, str]) -> None:
 
 def load_library() -> types.SimpleNamespace:
     """Build (where a source changed) and load the kernels' libraries;
-    returns a namespace with every C entry point of `_SIGNATURES`."""
+    returns a namespace with every C entry point of `_SIGNATURES`. Once
+    loaded, the namespace is returned without taking the lock."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             paths = library_paths()

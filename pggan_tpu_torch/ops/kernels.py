@@ -21,7 +21,10 @@ their backward here is written in differentiable torch ops
 backward, which runs through D's minibatch-stddev, composes.
 `lrelu_pixel_norm` is a `custom_vjp` there, first order only (G is
 differentiated once), so its backward is the backward kernel, marked
-`once_differentiable`.
+`once_differentiable`. Where autograd will not record the call (x does not
+require grad, or grad is disabled, as when sampling), `pixel_norm` and
+`lrelu_pixel_norm` call their forward without the `autograd.Function`, whose
+`apply` costs more host time than a small launch.
 
 Layout: the normalised axis is the channel axis. A 2-D input is a contiguous
 [B, C] tensor; a 4-D input is a logical NCHW tensor in `torch.channels_last`
@@ -35,6 +38,7 @@ channels_last [B, C, H, W] tensor with dim 1, or a contiguous one with dim -1.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Tuple
 
@@ -218,15 +222,24 @@ def kernel_channels(x: torch.Tensor, dim: int = 1) -> Tuple[int, int]:
 
 
 def _cuda_or_raise(name: str, x: torch.Tensor) -> None:
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"{name}: no kernel for device {x.device}")
 
 
-def _call(name: str, entry: str, device: torch.device, *args) -> None:
+def _call(name: str, entry: str, x: torch.Tensor, *args) -> None:
+    """Launch `entry` on the current stream of x's card. The host work is
+    kept to a minimum: no lock once the library is loaded, the raw stream
+    handle without a `torch.cuda.Stream` object (the CUDA build of torch has
+    `_cuda_getCurrentRawStream`; the CPU build does not, and never gets
+    here), and a device switch only when x is not on the current device."""
     lib = _build.load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, entry)(*args, stream)
+    index = x.get_device()
+    raw_stream = torch._C._cuda_getCurrentRawStream
+    if index == torch._C._cuda_getDevice():
+        err = getattr(lib, entry)(*args, raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = getattr(lib, entry)(*args, raw_stream(index))
     if err != 0:
         msg = lib.pggan_cuda_error_string(err).decode()
         raise RuntimeError(f"{entry} failed to launch: CUDA error {err} ({msg})")
@@ -236,21 +249,37 @@ def _call(name: str, entry: str, device: torch.device, *args) -> None:
 def _launch_rows(name: str, entry: str, x: torch.Tensor, *scalars: float) -> torch.Tensor:
     rows, cols = kernel_rows(x)
     _cuda_or_raise(name, x)
-    y = torch.empty(x.shape, dtype=x.dtype, device=x.device,
-                    memory_format=_row_format(x))
-    _call(name, entry, x.device, x.data_ptr(), y.data_ptr(), rows, cols,
+    # kernel_rows has checked that x is dense in its row layout (a contiguous
+    # [B, C] or a channels_last [B, C, H, W]), so y gets x's strides.
+    y = torch.empty_like(x)
+    _call(name, entry, x, x.data_ptr(), y.data_ptr(), rows, cols,
           _DTYPE_CODES[x.dtype], *scalars)
     return y
 
 
+def row_kernel_plan(x: torch.Tensor) -> Tuple[int, int]:
+    """The branch the forward row kernels take for x and an output of its
+    own (16-byte aligned): (lanes a row, 16-byte vectors a lane) for the
+    vector branch, (0, 0) for the generic one. The C side decides; this
+    asks it, and reads no memory behind the pointers."""
+    _, cols = kernel_rows(x)
+    lanes, vecs = ctypes.c_int(), ctypes.c_int()
+    err = _build.load_library().pggan_norm_rows_plan(
+        x.data_ptr(), 0, cols, _DTYPE_CODES[x.dtype], ctypes.byref(lanes),
+        ctypes.byref(vecs))
+    if err != 0:
+        raise RuntimeError(f"pggan_norm_rows_plan: CUDA error {err}")
+    return lanes.value, vecs.value
+
+
 def _pixel_norm_fwd(x: torch.Tensor, eps: float) -> torch.Tensor:
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return pixel_norm_plain(x, eps)
     return _launch_rows("pixel_norm", "pggan_pixel_norm_fwd", x, float(eps))
 
 
 def _lrelu_pixel_norm_fwd(x: torch.Tensor, slope: float, eps: float) -> torch.Tensor:
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return lrelu_pixel_norm_plain(x, slope, eps)
     return _launch_rows("lrelu_pixel_norm", "pggan_lrelu_pixel_norm_fwd", x,
                         float(slope), float(eps))
@@ -261,7 +290,7 @@ def lrelu_pixel_norm_bwd(x: torch.Tensor, g: torch.Tensor, slope: float = 0.2,
     """The backward of `lrelu_pixel_norm` (`_lrelu_pn_bwd_kernel`): dx for
     the saved input x and the output's gradient g. g must have x's shape,
     dtype and layout."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return lrelu_pixel_norm_bwd_plain(x, g, slope, eps)
     rows, cols = kernel_rows(x)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
@@ -270,21 +299,20 @@ def lrelu_pixel_norm_bwd(x: torch.Tensor, g: torch.Tensor, slope: float = 0.2,
             f"x {tuple(x.shape)} {x.dtype} on {x.device}")
     kernel_rows(g)
     _cuda_or_raise("lrelu_pixel_norm_bwd", x)
-    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device,
-                     memory_format=_row_format(x))
-    _call("lrelu_pixel_norm_bwd", "pggan_lrelu_pixel_norm_bwd", x.device,
+    dx = torch.empty_like(x)           # x is dense in its row layout: x's strides
+    _call("lrelu_pixel_norm_bwd", "pggan_lrelu_pixel_norm_bwd", x,
           x.data_ptr(), g.data_ptr(), dx.data_ptr(), rows, cols,
           _DTYPE_CODES[x.dtype], float(slope), float(eps))
     return dx
 
 
 def _minibatch_stddev_stat_fwd(x: torch.Tensor, sg: int, eps: float) -> torch.Tensor:
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return minibatch_stddev_stat_plain(x, sg, eps)
     n, f = kernel_samples(x, sg)
     _cuda_or_raise("minibatch_stddev_stat", x)
     out = torch.empty((n // sg,), dtype=torch.float32, device=x.device)
-    _call("minibatch_stddev_stat", "pggan_minibatch_stddev_stat", x.device,
+    _call("minibatch_stddev_stat", "pggan_minibatch_stddev_stat", x,
           x.data_ptr(), out.data_ptr(), n, f, int(sg), _DTYPE_CODES[x.dtype],
           float(eps))
     return out
@@ -292,7 +320,7 @@ def _minibatch_stddev_stat_fwd(x: torch.Tensor, sg: int, eps: float) -> torch.Te
 
 def _bias_lrelu_gain_fwd(x: torch.Tensor, b: Optional[torch.Tensor], slope: float,
                          gain: float, dim: int) -> torch.Tensor:
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return bias_lrelu_gain_plain(x, b, slope, gain, dim)
     n, cols = kernel_channels(x, dim)
     if b is not None and (b.shape != (cols,) or b.dtype not in (torch.float32, x.dtype)
@@ -302,7 +330,7 @@ def _bias_lrelu_gain_fwd(x: torch.Tensor, b: Optional[torch.Tensor], slope: floa
             f"got {tuple(b.shape)} {b.dtype} on {b.device}")
     _cuda_or_raise("bias_lrelu_gain", x)
     y = torch.empty_like(x)            # x is dense, so y gets x's strides
-    _call("bias_lrelu_gain", "pggan_bias_lrelu_gain", x.device, x.data_ptr(),
+    _call("bias_lrelu_gain", "pggan_bias_lrelu_gain", x, x.data_ptr(),
           None if b is None else b.data_ptr(), y.data_ptr(), n, cols,
           _DTYPE_CODES[x.dtype], 0 if b is None else _DTYPE_CODES[b.dtype],
           float(slope), float(gain))
@@ -400,13 +428,17 @@ class _BiasLreluGain(torch.autograd.Function):
 
 def pixel_norm(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     """Pixel normalisation over the channel axis (`pallas_kernels.pixel_norm`)."""
-    return _PixelNorm.apply(x, float(eps))
+    if torch.is_grad_enabled() and x.requires_grad:     # autograd records the call
+        return _PixelNorm.apply(x, float(eps))
+    return _pixel_norm_fwd(x, float(eps))
 
 
 def lrelu_pixel_norm(x: torch.Tensor, slope: float = 0.2,
                      eps: float = EPS) -> torch.Tensor:
     """pixel_norm(leaky_relu(x)) in one pass (`pallas_kernels.lrelu_pixel_norm`)."""
-    return _LreluPixelNorm.apply(x, float(slope), float(eps))
+    if torch.is_grad_enabled() and x.requires_grad:     # autograd records the call
+        return _LreluPixelNorm.apply(x, float(slope), float(eps))
+    return _lrelu_pixel_norm_fwd(x, float(slope), float(eps))
 
 
 def minibatch_stddev_stat(x: torch.Tensor, sg: int, eps: float = EPS) -> torch.Tensor:

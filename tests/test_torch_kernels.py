@@ -135,6 +135,9 @@ def test_lrelu_pixel_norm_grad_matches_jax_rule():
     (want,) = vjp(jnp.asarray(g))
     got = _vjp_of(lambda t: kernels.lrelu_pixel_norm(t, 0.2), x, g)
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
+    # an input that requires grad goes through the autograd rule
+    y = kernels.lrelu_pixel_norm(_to_torch(x.copy()).requires_grad_(True), 0.2)
+    assert type(y.grad_fn).__name__ == "_LreluPixelNormBackward"
 
 
 def test_pixel_norm_grads_match_jax_jvp():
@@ -149,11 +152,54 @@ def test_pixel_norm_grads_match_jax_jvp():
     want2 = np.asarray(jax.grad(lambda a: jnp.vdot(jnp.asarray(v), jax_grad(a)))(
         jnp.asarray(x)))
     xt = torch.from_numpy(x.copy()).requires_grad_(True)
-    (g1,) = torch.autograd.grad((kernels.pixel_norm(xt) * torch.from_numpy(w)).sum(),
-                                xt, create_graph=True)
+    y = kernels.pixel_norm(xt)
+    assert type(y.grad_fn).__name__ == "_PixelNormBackward"    # the autograd rule
+    (g1,) = torch.autograd.grad((y * torch.from_numpy(w)).sum(), xt, create_graph=True)
     (g2,) = torch.autograd.grad((g1 * torch.from_numpy(v)).sum(), xt)
     np.testing.assert_allclose(g1.detach().numpy(), want1, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(g2.numpy(), want2, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("name, rule", [("pixel_norm", "_PixelNorm"),
+                                        ("lrelu_pixel_norm", "_LreluPixelNorm")])
+@pytest.mark.parametrize("mode", ["input without grad", "under no_grad"])
+def test_forward_without_recording_skips_autograd_rule(monkeypatch, name, rule, mode):
+    """When autograd will not record the call, the public forward calls the
+    kernel wrapper directly: the rule's `apply` is not reached and the
+    output has no grad_fn."""
+    applied = []
+    apply = getattr(kernels, rule).apply
+    monkeypatch.setattr(getattr(kernels, rule), "apply",
+                        lambda *a: applied.append(a) or apply(*a))
+    x = _to_torch(_rand((2, 4, 4, 24), seed=18))
+    if mode == "input without grad":
+        y = getattr(kernels, name)(x)
+    else:
+        with torch.no_grad():
+            y = getattr(kernels, name)(x.requires_grad_(True))
+    assert y.grad_fn is None and not y.requires_grad
+    assert not applied
+    assert torch.equal(y, getattr(kernels, name + "_plain")(x.detach()))
+
+
+@pytest.mark.parametrize("name", ["pixel_norm", "lrelu_pixel_norm", "lrelu_pixel_norm_bwd"])
+@pytest.mark.parametrize("shape", [(2, 24, 4, 4), (2, 24, 1, 1), (16, 40)])
+def test_launch_output_strides_match_plain(monkeypatch, name, shape):
+    """The launch path allocates its output with x's strides, which are the
+    plain version's: for a channels_last 4-D input (H·W = 1 included, where
+    the strides are ambiguous) and a contiguous [B, C] one. Meta tensors
+    reach the allocation without a card; the launch itself is recorded."""
+    monkeypatch.setattr(kernels, "_cuda_or_raise", lambda *a: None)
+    calls = []
+    monkeypatch.setattr(kernels, "_call", lambda *a: calls.append(a[:2]))
+    x = torch.zeros(shape, device="meta")
+    if x.ndim == 4:
+        x = x.to(memory_format=torch.channels_last)
+    args = (x, x) if name == "lrelu_pixel_norm_bwd" else (x,)
+    got = getattr(kernels, name)(*args)
+    want = getattr(kernels, name + "_plain")(*args)
+    assert (got.shape, got.stride(), got.dtype) == (want.shape, want.stride(), want.dtype)
+    assert calls == [(name, f"pggan_{name}" + ("" if name.endswith("bwd") else "_fwd"))]
 
 
 MB_CASES = [((16, 4, 4, 32), 4), ((6, 4, 4, 16), 6), ((2, 4, 4, 8), 2),

@@ -11,8 +11,9 @@ their seeded initialisation, runs 2 warm-up steps, then profiles `--steps`
 train steps at batch 16 with `torch.profiler` (CPU and CUDA activities).
 Prints the wall time per step, the device's busy time per step (the union
 of the kernels' intervals) and idle share, the kernel time summed over
-streams, the launches of the port's kernels, and the kernels that took
-the most time (with their share of the summed kernel time).
+streams, the launches of the port's kernels, the kernels that took the
+most time (with their share of the summed kernel time), and the device time
+of each of the port's own kernels (`csrc/`) with their share of busy.
 `--cudnn_benchmark` lets cuDNN time its algorithms at the first call of each
 shape (the warm-up steps) instead of choosing by heuristics. `--forward`
 profiles G's sampling forward at batch 16 (no gradient) instead of the step;
@@ -34,6 +35,8 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH, SCALE, ALPHA = 16, 6, 0.5
+PORT_KERNELS = ("norm_rows_vec_kernel", "norm_rows_kernel", "lrelu_norm_rows_bwd_kernel",
+                "mb_stddev_kernel", "bias_lrelu_gain_kernel")
 
 
 def main(argv=None) -> int:
@@ -148,6 +151,14 @@ def main(argv=None) -> int:
     for ms, count, name in sorted(rows, reverse=True)[:ns.top]:
         print(f"[profile]   {ms:9.3f} ms {100 * ms / summed_ms:5.1f} % x{count:<4d} "
               f"{name[:110]}")
+    # The port's own kernels (csrc/), whatever their template arguments.
+    ours = {k: [(ms, count) for ms, count, name in rows if f"::{k}<" in name]
+            for k in PORT_KERNELS}
+    ours_ms = sum(ms for found in ours.values() for ms, _ in found)
+    print(f"[profile] the port's kernels {ours_ms:.3f} ms/step "
+          f"({100 * ours_ms / busy_ms:.1f} % of busy): " + ", ".join(
+              f"{k} {sum(ms for ms, _ in found):.3f} ms x{sum(c for _, c in found)}"
+              for k, found in ours.items() if found))
     return 0
 
 
