@@ -29,20 +29,31 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      memory;
   7. the backward kernel of lrelu_pixel_norm and the minibatch-stddev kernel
      against their plain versions, f32 and bf16, at the train path's shapes
-     and ragged ones, and the first and second derivatives of the
-     minibatch-stddev autograd rule against autograd of its plain version;
+     and at shapes that reach every branch of both (the backward's vector
+     branch at C = 64-512 and the generic one for ragged rows, rows over the
+     cap and misaligned views of x and of g; the minibatch-stddev vector
+     branch and the generic one for rows that are not a multiple of 16
+     bytes or a misaligned view), with the branch each input took and two
+     calls of the minibatch-stddev kernel compared bit for bit; and the
+     first and second derivatives of the minibatch-stddev autograd rule
+     against autograd of its plain version;
   8. the training slice through its entry point: a JAX-format G+D checkpoint
      (params and a fresh Adam state) at scale 6, full width, resumed by
      `pggan_tpu_torch.train.main` for a few r1 steps at batch 16 in bf16 on
      synthetic data, a checkpoint cycle included; checks the loss lines, that
      G and D moved, the checkpoints' JAX key sets and the launches per step
-     (4 pixel_norm, 26 lrelu_pixel_norm, 13 backward, 3 minibatch-stddev);
-  9. one f32 step (TF32 off) at full width with the kernels against the same
-     step with the plain versions, from the same state and latents: losses
-     and Adam's first moments (= the gradients, β1 = 0);
+     (4 pixel_norm, 26 lrelu_pixel_norm, 13 backward, 3 minibatch-stddev),
+     and that every backward call of the run took the vector branch;
+  9. one f32 step (TF32 off, cuDNN's deterministic algorithms, D's
+     learning rate 0) at full width with the kernels against the same step
+     with the plain versions, from the same state, on several draws of the
+     batch and latents: losses and Adam's first moments (= the gradients,
+     β1 = 0); the kernel path run twice agrees bit for bit;
  10. times on the card: the R1 step and the step without R1, each in bf16,
      f32 with TF32 off and f32 with TF32 on; peak memory; the train path's
-     kernels against their plain versions (call and device time);
+     kernels against their plain versions (call and device time; the
+     backward at the three largest epilogue shapes beside its bound, the
+     minibatch-stddev call beside pixel_norm's at the same shape);
  11. the StyleGAN2-ops path (`pggan_tpu_torch.ops`): the bias_lrelu_gain
      kernel against its plain version (f32 and bf16, the epilogue shapes and
      ragged ones, with and without a bias) and its rule's first and second
@@ -61,6 +72,7 @@ Exits non-zero without a CUDA device, and imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import io
@@ -100,12 +112,20 @@ FORWARD_KERNELS = ("pixel_norm", "lrelu_pixel_norm")
 TRAIN_STEPS = 4            # steps of the training slice (phase 8)
 # One f32 step (TF32 off), kernel path vs plain path (phase 9): bounds on
 # the relative loss difference and on the gradient difference relative to
-# the largest gradient of each network. Measured on an H100 over two runs:
-# losses up to 2.1e-7, gradients up to 4.4e-4 — and the kernel path run
-# twice differs by up to 2.1e-7 and 2.6e-4, because cuDNN's backward
-# algorithms do not sum in a fixed order. The bounds leave about 4.5x
-# (gradients) and 50x (losses) over that.
+# the largest gradient of each network. cuDNN's default backward algorithms
+# do not sum in a fixed order (the kernel path run twice differed by up to
+# 2.6e-4 of the largest gradient on an H100), so the step runs with cuDNN's
+# deterministic algorithms and the kernel path twice must agree bit for
+# bit; kernel vs plain then measures the kernels alone. D's learning rate
+# is 0 in this step, so G's gradient is taken against the D both paths
+# start from: D's first Adam step moves each entry by about lr·sign(g), and
+# a sign that rounding flips carried a difference of 9.0e-3 of G's largest
+# gradient on one draw, with this package and with the one before it alike.
+# Each draw of the batch and latents is a CUDA generator's (seed, Philox
+# offset); (0, 5508) is that draw. With D held, an H100 gave losses up to
+# 2.1e-7, D up to 5.0e-4 and G up to 2.2e-4, but 1.3e-3 on (0, 5508).
 STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-5, 2e-3
+STEP_DRAWS = ((0, 0), (1, 0), (2, 0), (0, 5508))
 # Phase 11: the ragged shapes of phase 3, bias_lrelu_gain's (slope, gain)
 # pairs, the filtered_lrelu shapes (the two top blocks of the 256² model at
 # batch 16) and bias_act's activations.
@@ -117,6 +137,19 @@ RAGGED = [(2, 3, 3, 16), (2, 4, 4, 513), (2, 4, 4, 96)]
 # = 2048 f32 over the cap, and MISALIGNED [B, C] views).
 BRANCH_SHAPES = RAGGED + [(2, 3, 3, 4), (2, 2, 2, 1024), (2, 2, 2, 2048)]
 MISALIGNED = [(BATCH, 512), (BATCH, 64)]
+# Phase 7: the backward at the path's shapes and at RAGGED, C = 1024 and
+# 2048 (the cap in f32 and bf16; 2048 f32 is over it), and at MISALIGNED
+# views of x and of g; the minibatch-stddev kernel at the path's groups,
+# a fused 2B step's 8 groups, sg = N = 6, sg 2, F = 45 (not a multiple of
+# 16 bytes) at sg 4 and 6 (the kernel's sg = 4 case and its any-sg loop)
+# and a misaligned view (NHWC shape, sg, one element into its storage).
+BWD_BRANCH_SHAPES = RAGGED + [(2, 2, 2, 1024), (2, 2, 2, 2048)]
+MB_CASES = [((BATCH, 4, 4, 512), 4, False), ((2 * BATCH, 4, 4, 512), 4, False),
+            ((6, 4, 4, 512), 6, False), ((2, 4, 4, 512), 2, False),
+            ((4, 3, 3, 5), 4, False), ((6, 3, 3, 5), 6, False),
+            ((BATCH, 4, 4, 512), 4, True)]
+# Phase 10: the backward's timed shapes, the three largest epilogues.
+BWD_TIMED = [(BATCH, 64, 64, 256), (BATCH, 128, 128, 128), (BATCH, 256, 256, 64)]
 BIAS_PARAMS = ((0.2, math.sqrt(2.0)), (0.1, 1.0))
 OPS_SHAPES = [(BATCH, 128, 128, 128), (BATCH, 256, 256, 64)]
 ACTIVATIONS = ("linear", "relu", "lrelu", "tanh", "sigmoid", "elu", "selu", "softplus",
@@ -318,6 +351,17 @@ def misaligned_rows(shape, dtype, gen):
     return flat[1:].view(shape)
 
 
+def check_row_plan(label, plan, cols, elem_bytes, shifted):
+    """A row kernel's branch: the generic one for misaligned views, rows
+    that are not a multiple of 16 bytes and rows over 4096 bytes; the
+    vector one at the widths of configs.yaml."""
+    row_bytes = cols * elem_bytes
+    if shifted or row_bytes % 16 or row_bytes > 4096:
+        check(plan == (0, 0), f"{label}: expected the generic branch, got {plan}")
+    elif cols in (64, 128, 256, 512):
+        check(plan != (0, 0), f"{label}: expected the vector branch")
+
+
 def check_kernels(kernels, shapes, gen):
     """Phase 3: every forward kernel against its plain version, f32 and bf16,
     at `shapes` (NHWC or [B, C]) and at MISALIGNED [B, C] views one element
@@ -334,11 +378,7 @@ def check_kernels(kernels, shapes, gen):
             plan = kernels.row_kernel_plan(x)
             label = f"{list(shape)}{' +1' if shifted else ''} {str(dt)[6:]}"
             branches[label] = plan
-            row_bytes = shape[-1] * x.element_size()
-            if shifted or row_bytes % 16 or row_bytes > 4096:
-                check(plan == (0, 0), f"{label}: expected the generic branch, got {plan}")
-            elif shape[-1] in (64, 128, 256, 512):
-                check(plan != (0, 0), f"{label}: expected the vector branch")
+            check_row_plan(label, plan, shape[-1], x.element_size(), shifted)
             for name in FORWARD_KERNELS:
                 got = getattr(kernels, name)(x)
                 want = getattr(kernels, name + "_plain")(x)
@@ -566,42 +606,60 @@ def time_block_heads(generator, depths, gen, card):
 
 def check_train_kernels(kernels, path_shapes, gen):
     """Phase 7: the backward kernel and the minibatch-stddev kernel against
-    their plain versions, and the minibatch-stddev rule's first and second
+    their plain versions at every branch (the branch each input took as the
+    C side picks it, asserted as in phase 3), two minibatch-stddev calls
+    bit for bit, and the minibatch-stddev rule's first and second
     derivatives. Returns {kernel: {dtype: max |diff|}}."""
     max_err = {name: {dt: 0.0 for dt in TOL}
                for name in ("lrelu_pixel_norm_bwd", "minibatch_stddev_stat")}
-    bwd_shapes = sorted(set(path_shapes)) + [(2, 3, 3, 16), (2, 4, 4, 513),
-                                              (2, 4, 4, 96)]
-    mb_shapes = [((BATCH, 4, 4, 512), 4), ((2 * BATCH, 4, 4, 512), 4),
-                 ((6, 4, 4, 512), 6), ((2, 4, 4, 512), 2)]
+    bwd_cases = ([(shape, None) for shape in sorted(set(path_shapes)) + BWD_BRANCH_SHAPES]
+                 + [(shape, which) for shape in MISALIGNED for which in ("x", "g")])
+    branches = {}
     with torch.no_grad():
         for dt in TOL:
-            for shape in bwd_shapes:
-                x, g = nhwc(shape, dt, gen), nhwc(shape, dt, gen)
+            for shape, shifted in bwd_cases:
+                x, g = (misaligned_rows(shape, dt, gen) if shifted == name
+                        else nhwc(shape, dt, gen) for name in ("x", "g"))
+                label = f"{list(shape)}{f' {shifted} +1' if shifted else ''} {str(dt)[6:]}"
+                plan = branches[label] = kernels.row_kernel_plan(x, g)
+                check_row_plan(label, plan, shape[-1], x.element_size(), shifted)
                 got = kernels.lrelu_pixel_norm_bwd(x, g)
                 want = kernels.lrelu_pixel_norm_bwd_plain(x, g)
                 torch.cuda.synchronize()
                 torch.testing.assert_close(got, want, **BWD_TOL[dt], msg=lambda m: (
-                    f"lrelu_pixel_norm_bwd {shape} {dt}: {m}"))
-                check(got.is_contiguous(memory_format=torch.channels_last),
-                      f"lrelu_pixel_norm_bwd {shape}: layout")
+                    f"lrelu_pixel_norm_bwd {label}: {m}"))
+                check(got.stride() == want.stride(), f"lrelu_pixel_norm_bwd {label}: strides "
+                      f"{got.stride()}, plain {want.stride()}")
                 err = float((got.float() - want.float()).abs().max())
                 max_err["lrelu_pixel_norm_bwd"][dt] = max(
                     max_err["lrelu_pixel_norm_bwd"][dt], err)
-            for shape, sg in mb_shapes:
-                x = nhwc(shape, dt, gen)
+            for shape, sg, shifted in MB_CASES:
+                n, f = shape[0], int(np.prod(shape[1:]))
+                x = misaligned_rows((n, f), dt, gen) if shifted else nhwc(shape, dt, gen)
+                label = f"{list(shape)}{' +1' if shifted else ''} sg {sg} {str(dt)[6:]}"
+                plan = branches[label] = kernels.minibatch_stddev_plan(x, sg)
+                vector = not shifted and f * x.element_size() % 16 == 0
+                check(plan == (16 // x.element_size() if vector else 1),
+                      f"minibatch_stddev_stat {label}: {plan} values a load")
                 got = kernels.minibatch_stddev_stat(x, sg)
+                again = kernels.minibatch_stddev_stat(x, sg)
                 want = kernels.minibatch_stddev_stat_plain(x, sg)
                 torch.cuda.synchronize()
+                check(torch.equal(got, again), f"minibatch_stddev_stat {label}: two calls "
+                      f"differ by {float((got - again).abs().max()):.3g}")
                 torch.testing.assert_close(got, want, **MB_TOL, msg=lambda m: (
-                    f"minibatch_stddev_stat {shape} sg {sg} {dt}: {m}"))
+                    f"minibatch_stddev_stat {label}: {m}"))
                 err = float((got - want).abs().max())
                 max_err["minibatch_stddev_stat"][dt] = max(
                     max_err["minibatch_stddev_stat"][dt], err)
+    print("[7 kernels] branches (backward: lanes a row, 16-byte vectors a lane, (0, 0) = "
+          "generic; minibatch-stddev: values a load, 1 = generic): "
+          + ", ".join(f"{k} {v}" for k, v in branches.items()))
     for name, errs in max_err.items():
-        shapes = bwd_shapes if name == "lrelu_pixel_norm_bwd" else mb_shapes
+        cases = bwd_cases if name == "lrelu_pixel_norm_bwd" else MB_CASES
         tol = BWD_TOL if name == "lrelu_pixel_norm_bwd" else {dt: MB_TOL for dt in TOL}
-        print(f"[7 kernels] {name}: {len(shapes)} shapes match the plain version; "
+        print(f"[7 kernels] {name}: {len(cases)} inputs match the plain version"
+              f"{'' if name == 'lrelu_pixel_norm_bwd' else ', two calls equal bit for bit'}; "
               f"max |diff| f32 {errs[torch.float32]:.3g} ({tol[torch.float32]}), "
               f"bf16 {errs[torch.bfloat16]:.3g} ({tol[torch.bfloat16]})")
 
@@ -666,9 +724,18 @@ def run_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp):
         json.dump({"save_root": tmp}, f)            # JSON is YAML
     end = start + TRAIN_STEPS
     out = io.StringIO()
+    # The branch of each backward call, asked of the C side before the call
+    # (no launch, no count).
+    bwd_plans = collections.Counter()
+    bwd = kernels.lrelu_pixel_norm_bwd
+
+    def planned_bwd(x, g, *args):
+        bwd_plans[kernels.row_kernel_plan(x, g)] += 1
+        return bwd(x, g, *args)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), mock.patch.object(
+            kernels, "lrelu_pixel_norm_bwd", planned_bwd):
         rc = train_mod.main(["smoke_train", "--config", config, "--ckpt_id",
                              "smoke_init", "--max_step", str(end), "--compute_dtype",
                              "bfloat16", "--device", DEVICE])
@@ -688,6 +755,8 @@ def run_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp):
                 "minibatch_stddev_stat": 3, "bias_lrelu_gain": 0}
     want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
     check(launches == want, f"launches {launches}, expected {want}")
+    check(sum(bwd_plans.values()) == want["lrelu_pixel_norm_bwd"] and (0, 0) not in bwd_plans,
+          f"backward branches {dict(bwd_plans)}: expected the vector branch for every call")
     ckpt_steps = sorted(int(f.split("_")[1][:-4]) for f in os.listdir(
         ckpt_lib.ckpt_dir(tmp, "smoke_train")) if f.startswith("G_") and "latest" not in f)
     check(ckpt_steps == [start + 2, end], f"checkpoint steps {ckpt_steps}")
@@ -704,7 +773,8 @@ def run_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp):
           f"checkpoint at step {start} and ran {TRAIN_STEPS} r1 steps at {RES}x{RES}, "
           f"batch {BATCH}, bf16, in {train_s:.2f} s (checkpoint load, data, steps, "
           f"checkpoints at {ckpt_steps}); G and D moved; launches {launches} = "
-          f"{TRAIN_STEPS} steps x {per_step}")
+          f"{TRAIN_STEPS} steps x {per_step}; backward branches (lanes a row, vectors a "
+          f"lane): {dict(bwd_plans)}")
     return launches, args, arrays_g, arrays_d
 
 
@@ -715,45 +785,81 @@ def train_state(step_mod, cfg, arrays_g, arrays_d):
     return step_mod.init_train_state(cfg, G, D, torch.Generator(device=DEVICE).manual_seed(0))
 
 
-def compare_step(step_mod, kernels, equalized, cfg, arrays_g, arrays_d, gen):
-    """Phase 9: one f32 step (TF32 off) with the kernels and one with the
-    plain versions, from the same state, batch and latents."""
+def step_runs(step_mod, kernels, equalized, cfg, arrays_g, arrays_d, gen, labels):
+    """One step for each label of labels ("kernel", "plain", "kernel
+    again"), each from the same state, batch and latents (drawn from gen).
+    Returns {label: (losses, {net: Adam state in the JAX layout})}."""
     batch = torch.randint(0, 256, (BATCH, RES, RES, 3), generator=gen, device=DEVICE,
                           dtype=torch.uint8)
     z1 = torch.randn((BATCH, int(cfg.latent_dim)), generator=gen, device=DEVICE)
     z2 = torch.randn((BATCH, int(cfg.latent_dim)), generator=gen, device=DEVICE)
     step = step_mod.make_train_step(cfg, SCALE)
     runs = {}
-    # the kernel path twice: the spread of cuDNN's own run-to-run differences
-    for label, plain in (("kernel", False), ("plain", True), ("kernel again", False)):
+    for label in labels:
         state = train_state(step_mod, cfg, arrays_g, arrays_d)
-        with plain_kernels(kernels) if plain else contextlib.nullcontext():
+        with plain_kernels(kernels) if label == "plain" else contextlib.nullcontext():
             metrics = step(state, batch, ALPHA, z1=z1, z2=z2)
         runs[label] = ({k: float(v) for k, v in metrics.items()},
                        {n: equalized.adam_state_to_jax(o, net) for n, net, o in
                         (("D", state.D, state.opt_D), ("G", state.G, state.opt_G))})
-    print(f"[9 step] f32 TF32 off, {RES}x{RES} batch {BATCH}: kernel path losses "
-          f"{ {k: round(v, 6) for k, v in runs['kernel'][0].items()} }")
+    return runs
 
-    def differences(a, b):
-        (m_a, mom_a), (m_b, mom_b) = runs[a], runs[b]
-        loss = max(abs(m_a[k] - m_b[k]) / max(abs(m_b[k]), 1e-12) for k in m_b)
-        grads = {}
-        for net in ("D", "G"):
-            keys = [k for k in mom_b[net] if k.startswith("0/mu/")]
-            largest = max(float(np.abs(mom_b[net][k]).max()) for k in keys)
-            diff = max(float(np.abs(mom_a[net][k] - mom_b[net][k]).max()) for k in keys)
-            grads[net] = diff / largest
-        print(f"[9 step] {a} vs {b}: largest relative loss difference {loss:.3g}; "
-              f"gradient (Adam mu, beta1 = 0) max |diff| over the largest |g|: "
-              f"D {grads['D']:.3g}, G {grads['G']:.3g}")
-        return loss, max(grads.values())
-    loss_rel, grad_rel = differences("kernel", "plain")
-    differences("kernel again", "kernel")
+
+def step_difference(runs, a, b):
+    """Run a against run b: the largest relative loss difference, and per
+    network {net: (gradient max |diff| over the largest |g|, the parameter
+    where it is largest)} (Adam's first moment after one step = the
+    gradient, β1 = 0)."""
+    (m_a, mom_a), (m_b, mom_b) = runs[a], runs[b]
+    loss = max(abs(m_a[k] - m_b[k]) / max(abs(m_b[k]), 1e-12) for k in m_b)
+    grads = {}
+    for net in ("D", "G"):
+        keys = [k for k in mom_b[net] if k.startswith("0/mu/")]
+        largest = max(float(np.abs(mom_b[net][k]).max()) for k in keys)
+        diff, where = max((float(np.abs(mom_a[net][k] - mom_b[net][k]).max()), k)
+                          for k in keys)
+        grads[net] = (diff / largest, where[len("0/mu/"):])
+    return loss, grads
+
+
+def compare_step(step_mod, kernels, equalized, cfg, arrays_g, arrays_d):
+    """Phase 9: one f32 step (TF32 off, cuDNN's deterministic algorithms, D's
+    learning rate 0) with the kernels and one with the plain versions, from
+    the same state, batch and latents, for each of STEP_DRAWS; on the first
+    the kernel path once more."""
+    cfg = copy.deepcopy(cfg)
+    cfg["lr_D"] = 0.0
+    worst = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for i, (seed, offset) in enumerate(STEP_DRAWS):
+            gen = torch.Generator(device=DEVICE).manual_seed(seed)
+            if offset:
+                gen.set_offset(offset)
+            labels = ("kernel", "plain", "kernel again") if i == 0 else ("kernel", "plain")
+            runs = step_runs(step_mod, kernels, equalized, cfg, arrays_g, arrays_d, gen,
+                             labels)
+            print(f"[9 step] f32 TF32 off, {RES}x{RES} batch {BATCH}, draw (seed {seed}, "
+                  f"offset {offset}): kernel path losses "
+                  f"{ {k: round(v, 6) for k, v in runs['kernel'][0].items()} }")
+            for a, b in (("kernel", "plain"), ("kernel again", "kernel"))[:len(labels) - 1]:
+                loss, grads = step_difference(runs, a, b)
+                seen = worst.get(a, (0.0, 0.0))
+                worst[a] = (max(seen[0], loss), max([seen[1]] + [r for r, _ in grads.values()]))
+                print(f"[9 step]   {a} vs {b}: largest relative loss difference {loss:.3g}; "
+                      f"gradient (Adam mu, beta1 = 0) max |diff| over the largest |g|: "
+                      + ", ".join(f"{net} {r:.3g} ({where})"
+                                  for net, (r, where) in grads.items()))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    loss_rel, grad_rel = worst["kernel"]
+    check(worst["kernel again"] == (0.0, 0.0),
+          f"the kernel path twice differs: {worst['kernel again']}")
     check(loss_rel <= STEP_LOSS_RTOL, f"loss difference {loss_rel:.3g}")
     check(grad_rel <= STEP_GRAD_RTOL, f"gradient difference {grad_rel:.3g}")
-    print(f"[9 step] bounds: losses rtol {STEP_LOSS_RTOL}, gradients "
-          f"{STEP_GRAD_RTOL} of the largest gradient of each network")
+    print(f"[9 step] over {len(STEP_DRAWS)} draws, kernel vs plain: losses {loss_rel:.3g} "
+          f"(rtol {STEP_LOSS_RTOL}), gradients {grad_rel:.3g} of the largest gradient of "
+          f"each network ({STEP_GRAD_RTOL}); the kernel path twice bit for bit")
 
 
 def time_train(step_mod, kernels, cfg, arrays_g, arrays_d, gen, card):
@@ -791,31 +897,46 @@ def time_train(step_mod, kernels, cfg, arrays_g, arrays_d, gen, card):
 
 
 def time_train_kernels(kernels, gen, card):
-    """Phase 10b: the train path's kernels at their largest path shapes
-    against their plain versions (no one PyTorch call computes either):
-    call time and device time. Returns {(kernel, dtype): (call ms, device
-    ms, plain ms)}."""
-    times = {}
-    for dt in (torch.float32, torch.bfloat16):
-        x, g = nhwc((BATCH, 256, 256, 64), dt, gen), nhwc((BATCH, 256, 256, 64), dt, gen)
+    """Phase 10b: the train path's kernels against their plain versions (no
+    one PyTorch call computes either), f32 and bf16: the backward at the
+    three largest epilogue shapes (BWD_TIMED), with its GB/s and share of
+    its bound; the minibatch-stddev kernel at [16, 4, 4, 512] sg 4, its
+    call (autograd not recording) in the same turns as pixel_norm's call at
+    that shape. Call time and device time. Uses only wrapper calls that
+    every checkout of the port has (`lrelu_pixel_norm_bwd(x, g)`,
+    `minibatch_stddev_stat(x, sg)`, `pixel_norm(x)`), so
+    tools/time_row_kernels.py runs it on a parent checkout too. Returns
+    {(kernel, shape, dtype): (call ms, device ms, plain ms)} and {dtype:
+    pixel_norm call ms}."""
+    times, pixel_norm_calls = {}, {}
+    for shape, dt in itertools.product(BWD_TIMED, (torch.float32, torch.bfloat16)):
+        x, g = nhwc(shape, dt, gen), nhwc(shape, dt, gen)
         kernel = lambda: kernels.lrelu_pixel_norm_bwd(x, g)  # noqa: E731
         plain_ms, kernel_ms = abba_ms(lambda: kernels.lrelu_pixel_norm_bwd_plain(x, g), kernel)
         kernel_dev = device_ms(kernel, kernels, "lrelu_pixel_norm_bwd")
-        times[("lrelu_pixel_norm_bwd", dt)] = (kernel_ms, kernel_dev, plain_ms)
-        gbps = 3 * x.numel() * x.element_size() / (kernel_dev * 1e-3) / 1e9
-        print(f"[10 times] lrelu_pixel_norm_bwd [16,256,256,64] {str(dt)[6:]}: kernel "
-              f"call {kernel_ms:.4f} ms, device {kernel_dev:.4f} ms ({gbps:.0f} GB/s of two "
-              f"reads + one write); plain call {plain_ms:.4f} ms ({card})")
-        m = nhwc((BATCH, 4, 4, 512), dt, gen)
+        times[("lrelu_pixel_norm_bwd", shape, dt)] = (kernel_ms, kernel_dev, plain_ms)
+        nbytes = 3 * x.numel() * x.element_size()
+        b_ms, _ = bound_ms(nbytes, 12 * x.numel())
+        print(f"[10 times] lrelu_pixel_norm_bwd {list(shape)} {str(dt)[6:]}: kernel call "
+              f"{kernel_ms:.4f} ms, device {kernel_dev:.4f} ms ({nbytes / kernel_dev / 1e6:.0f} "
+              f"GB/s of two reads + one write; bound {b_ms:.4f} ms, "
+              f"{100 * b_ms / kernel_dev:.0f} % of it reached); plain call {plain_ms:.4f} ms "
+              f"({card})")
+    shape = (BATCH, 4, 4, 512)
+    for dt in (torch.float32, torch.bfloat16):
+        m = nhwc(shape, dt, gen)
         kernel = lambda: kernels.minibatch_stddev_stat(m, 4)  # noqa: E731
-        plain_ms, kernel_ms = abba_ms(lambda: kernels.minibatch_stddev_stat_plain(m, 4), kernel,
-                                      iters=SMALL_ITERS)
+        plain_ms, kernel_ms, pn_ms = abba_ms(
+            lambda: kernels.minibatch_stddev_stat_plain(m, 4), kernel,
+            lambda: kernels.pixel_norm(m), iters=SMALL_ITERS)
         kernel_dev = device_ms(kernel, kernels, "minibatch_stddev_stat")
-        times[("minibatch_stddev_stat", dt)] = (kernel_ms, kernel_dev, plain_ms)
-        print(f"[10 times] minibatch_stddev_stat [16,4,4,512] sg 4 {str(dt)[6:]}: "
-              f"kernel call {kernel_ms:.4f} ms, device {kernel_dev:.4f} ms; plain call "
-              f"{plain_ms:.4f} ms ({card})")
-    return times
+        times[("minibatch_stddev_stat", shape, dt)] = (kernel_ms, kernel_dev, plain_ms)
+        pixel_norm_calls[dt] = pn_ms
+        print(f"[10 times] minibatch_stddev_stat {list(shape)} sg 4 {str(dt)[6:]}: kernel "
+              f"call {kernel_ms:.4f} ms ({kernel_ms / pn_ms:.2f}x pixel_norm's call "
+              f"{pn_ms:.4f} ms at that shape, same turns), device {kernel_dev:.4f} ms; plain "
+              f"call {plain_ms:.4f} ms ({card})")
+    return times, pixel_norm_calls
 
 
 @contextlib.contextmanager
@@ -1124,10 +1245,10 @@ def main() -> int:
             train_mod, kernels, ckpt_lib, cfg, depths, tmp)
     step_cfg = Config(args)
     step_cfg["compute_dtype"] = "float32"
-    compare_step(step_mod, kernels, equalized, step_cfg, arrays_g, arrays_d, gen)
+    compare_step(step_mod, kernels, equalized, step_cfg, arrays_g, arrays_d)
     print(f"[10 times] card: {card}")
     time_train(step_mod, kernels, step_cfg, arrays_g, arrays_d, gen, card)
-    train_times = time_train_kernels(kernels, gen, card)
+    train_times, _ = time_train_kernels(kernels, gen, card)
 
     # ---- the StyleGAN2-ops path ----
     from pggan_tpu_torch import ops
@@ -1154,10 +1275,10 @@ def main() -> int:
         ("lrelu_pixel_norm", "norm_kernels.cu", ":179", big,
          times[("lrelu_pixel_norm", big, torch.float32)], 2 * n_big * 4, 4 * n_big, None),
         ("lrelu_pixel_norm_bwd", "norm_kernels.cu", ":186", big,
-         train_times[("lrelu_pixel_norm_bwd", torch.float32)], 3 * n_big * 4,
+         train_times[("lrelu_pixel_norm_bwd", big, torch.float32)], 3 * n_big * 4,
          12 * n_big, None),
         ("minibatch_stddev_stat", "mb_stddev.cu", ":252", rows,
-         train_times[("minibatch_stddev_stat", torch.float32)],
+         train_times[("minibatch_stddev_stat", rows, torch.float32)],
          n_rows * 4 + BATCH // 4 * 4, 6 * n_rows, None),
         ("bias_lrelu_gain", "bias_act.cu", ":97", big,
          ops_times[("bias_lrelu_gain", torch.float32)], 2 * n_big * 4 + big[-1] * 4,

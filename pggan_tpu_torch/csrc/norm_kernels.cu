@@ -43,15 +43,21 @@
 // loads, the row re-read for the scaling. `norm_rows_plan` picks the branch
 // and the launch follows it; `pggan_norm_rows_plan` reports it.
 //
-// The backward is still the generic design: one warp per row, two running
-// sums (z*z and z*g) in the first pass and the second pass re-reading both
-// rows.
+// The backward (lrelu_norm_rows_bwd_vec_kernel) follows the same plan over
+// its three pointers (x, g and dx): each lane loads its x and g vectors once
+// into registers, the two row sums (z*z and z*g) are reduced with xor
+// shuffles inside the L-lane segment, and dx is computed from the registers
+// and written once as 16-byte vectors, with one rounding to the tensor's
+// type. At C = 64 in bf16 a warp holds 4 rows with one x and one g vector a
+// lane. Rows the plan refuses go to lrelu_norm_rows_bwd_kernel, the generic
+// branch: one warp per row, scalar loads, x and g re-read for the output.
 //
 // Plain C interface for ctypes; each entry point returns cudaGetLastError()
 // (0 on success) after the launch on the caller's stream. Nothing here
 // allocates or synchronises.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -247,6 +253,76 @@ lrelu_norm_rows_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
+// The backward's vector branch: x, g and dx as [rows, vecs_per_row] 16-byte
+// vectors, lanes and rows as in norm_rows_vec_kernel.
+template <typename T, int kVecs>
+__global__ void __launch_bounds__(kThreadsPerBlock)
+lrelu_norm_rows_bwd_vec_kernel(const uint4* __restrict__ x, const uint4* __restrict__ g,
+                               uint4* __restrict__ dx, int64_t rows, int vecs_per_row,
+                               int lanes_log2, int cols, float slope, float eps) {
+  using V = Vec16<T>;
+  const int lane = threadIdx.x & 31;
+  const int lanes = 1 << lanes_log2;
+  const int seg = lane & (lanes - 1);
+  const int64_t warp = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int64_t first_row = warp << (5 - lanes_log2);
+  if (first_row >= rows) return;  // whole warps leave, as in norm_rows_vec_kernel
+  const int64_t row = first_row + (lane >> lanes_log2);
+  const bool live = row < rows;
+  const int64_t base = row * vecs_per_row;
+
+  // All loads first, so a lane has 2 * kVecs 16-byte loads in flight.
+  uint4 xv[kVecs], gv[kVecs];
+#pragma unroll
+  for (int k = 0; k < kVecs; ++k) {
+    const int c = seg + k * lanes;
+    if (live && c < vecs_per_row) {
+      xv[k] = __ldg(x + base + c);
+      gv[k] = __ldg(g + base + c);
+    }
+  }
+  float sum_zz = 0.f;
+  float sum_zg = 0.f;
+#pragma unroll
+  for (int k = 0; k < kVecs; ++k) {
+    const int c = seg + k * lanes;
+    if (live && c < vecs_per_row) {
+      float xf[V::kValues], gf[V::kValues];
+      V::unpack(xv[k], xf);
+      V::unpack(gv[k], gf);
+#pragma unroll
+      for (int i = 0; i < V::kValues; ++i) {
+        const float z = activate<true>(xf[i], slope);
+        sum_zz += z * z;
+        sum_zg += z * gf[i];
+      }
+    }
+  }
+  for (int offset = lanes >> 1; offset > 0; offset >>= 1) {
+    sum_zz += __shfl_xor_sync(0xffffffffu, sum_zz, offset);
+    sum_zg += __shfl_xor_sync(0xffffffffu, sum_zg, offset);
+  }
+  const float inv_cols = 1.f / static_cast<float>(cols);
+  const float inv = rsqrtf(sum_zz * inv_cols + eps);
+  const float k3 = inv * inv * inv * (sum_zg * inv_cols);
+
+#pragma unroll
+  for (int k = 0; k < kVecs; ++k) {
+    const int c = seg + k * lanes;
+    if (live && c < vecs_per_row) {
+      float xf[V::kValues], gf[V::kValues];
+      V::unpack(xv[k], xf);
+      V::unpack(gv[k], gf);
+#pragma unroll
+      for (int i = 0; i < V::kValues; ++i) {
+        const float dz = inv * gf[i] - activate<true>(xf[i], slope) * k3;
+        xf[i] = xf[i] >= 0.f ? dz : dz * slope;
+      }
+      dx[base + c] = V::pack(xf);
+    }
+  }
+}
+
 // Blocks of kThreadsPerBlock threads for `rows` rows at `rows_per_block`;
 // fails on a grid that does not fit.
 int row_grid(int64_t rows, int cols, int64_t rows_per_block, dim3* grid) {
@@ -259,19 +335,23 @@ int row_grid(int64_t rows, int cols, int64_t rows_per_block, dim3* grid) {
 
 int elem_bytes(int dtype) { return dtype == 0 ? 4 : dtype == 1 ? 2 : 0; }
 
-// The forward's branch for these pointers and this row: the vector branch
-// (lanes a row, a power of two <= 32, and vectors a lane) when a row is a
-// whole number of 16-byte vectors, both pointers are 16-byte aligned and a
-// row fits kMaxVecsPerLane vectors a lane; else the generic branch
-// (*lanes = *vecs = 0).
-void norm_rows_plan(const void* x, const void* y, int cols, int bytes, int* lanes_log2,
-                    int* vecs) {
+// The bits of every pointer of a call, ORed: 16-byte aligned iff all are.
+uintptr_t pointer_bits(const void* a, const void* b, const void* c = nullptr) {
+  return reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+         reinterpret_cast<uintptr_t>(c);
+}
+
+// The row kernels' branch for rows of `cols` values of `bytes` bytes at
+// pointers whose bits OR to `ptr_bits` (the forwards: x and y; the
+// backward: x, g and dx): the vector branch (lanes a row, a power of two
+// <= 32, and vectors a lane) when a row is a whole number of 16-byte
+// vectors, every pointer is 16-byte aligned and a row fits kMaxVecsPerLane
+// vectors a lane; else the generic branch (*lanes = *vecs = 0).
+void norm_rows_plan(uintptr_t ptr_bits, int cols, int bytes, int* lanes_log2, int* vecs) {
   *lanes_log2 = 0;
   *vecs = 0;
   const int64_t row_bytes = static_cast<int64_t>(cols) * bytes;
-  const bool aligned = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) %
-                           kVecBytes == 0;
-  if (cols <= 0 || row_bytes % kVecBytes != 0 || !aligned ||
+  if (cols <= 0 || row_bytes % kVecBytes != 0 || ptr_bits % kVecBytes != 0 ||
       row_bytes > static_cast<int64_t>(32) * kMaxVecsPerLane * kVecBytes) {
     return;
   }
@@ -282,39 +362,49 @@ void norm_rows_plan(const void* x, const void* y, int cols, int bytes, int* lane
   *vecs = (per_row + (1 << lanes_log2_) - 1) >> lanes_log2_;
 }
 
-template <typename T, bool kLrelu, int kVecs>
-void launch_vec(const void* x, void* y, int64_t rows, int cols, int lanes_log2,
-                const dim3& grid, float slope, float eps, cudaStream_t s) {
-  const int per_row = cols * static_cast<int>(sizeof(T)) / kVecBytes;
-  norm_rows_vec_kernel<T, kLrelu, kVecs><<<grid, kThreadsPerBlock, 0, s>>>(
-      static_cast<const uint4*>(x), static_cast<uint4*>(y), rows, per_row, lanes_log2, cols,
-      slope, eps);
+// Calls launch(std::integral_constant<int, vecs>) for vecs in 1..8, the
+// vector branch's template argument; fails on any other count.
+template <typename Launch>
+int dispatch_vecs(int vecs, Launch&& launch) {
+  switch (vecs) {
+    case 1: launch(std::integral_constant<int, 1>{}); break;
+    case 2: launch(std::integral_constant<int, 2>{}); break;
+    case 3: launch(std::integral_constant<int, 3>{}); break;
+    case 4: launch(std::integral_constant<int, 4>{}); break;
+    case 5: launch(std::integral_constant<int, 5>{}); break;
+    case 6: launch(std::integral_constant<int, 6>{}); break;
+    case 7: launch(std::integral_constant<int, 7>{}); break;
+    case 8: launch(std::integral_constant<int, 8>{}); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+// Rows a block of the plan's branch takes: 8 on the generic branch (a warp
+// a row), 8 * 32 / L on the vector one.
+int64_t block_rows(int lanes_log2, int vecs) {
+  return vecs == 0 ? kWarpsPerBlock : static_cast<int64_t>(kWarpsPerBlock) << (5 - lanes_log2);
 }
 
 template <typename T, bool kLrelu>
 int launch_norm_rows_typed(const void* x, void* y, int64_t rows, int cols, float slope,
                            float eps, cudaStream_t s) {
   int lanes_log2 = 0, vecs = 0;
-  norm_rows_plan(x, y, cols, static_cast<int>(sizeof(T)), &lanes_log2, &vecs);
-  const int64_t rows_per_block =
-      vecs == 0 ? kWarpsPerBlock : static_cast<int64_t>(kWarpsPerBlock) << (5 - lanes_log2);
+  norm_rows_plan(pointer_bits(x, y), cols, static_cast<int>(sizeof(T)), &lanes_log2, &vecs);
   dim3 grid;
-  if (const int err = row_grid(rows, cols, rows_per_block, &grid)) return err;
+  if (const int err = row_grid(rows, cols, block_rows(lanes_log2, vecs), &grid)) return err;
   if (rows == 0) return static_cast<int>(cudaSuccess);
-  switch (vecs) {
-    case 0:
-      norm_rows_kernel<T, kLrelu><<<grid, kThreadsPerBlock, 0, s>>>(
-          static_cast<const T*>(x), static_cast<T*>(y), rows, cols, slope, eps);
-      break;
-    case 1: launch_vec<T, kLrelu, 1>(x, y, rows, cols, lanes_log2, grid, slope, eps, s); break;
-    case 2: launch_vec<T, kLrelu, 2>(x, y, rows, cols, lanes_log2, grid, slope, eps, s); break;
-    case 3: launch_vec<T, kLrelu, 3>(x, y, rows, cols, lanes_log2, grid, slope, eps, s); break;
-    case 4: launch_vec<T, kLrelu, 4>(x, y, rows, cols, lanes_log2, grid, slope, eps, s); break;
-    case 5: launch_vec<T, kLrelu, 5>(x, y, rows, cols, lanes_log2, grid, slope, eps, s); break;
-    case 6: launch_vec<T, kLrelu, 6>(x, y, rows, cols, lanes_log2, grid, slope, eps, s); break;
-    case 7: launch_vec<T, kLrelu, 7>(x, y, rows, cols, lanes_log2, grid, slope, eps, s); break;
-    case 8: launch_vec<T, kLrelu, 8>(x, y, rows, cols, lanes_log2, grid, slope, eps, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (vecs == 0) {
+    norm_rows_kernel<T, kLrelu><<<grid, kThreadsPerBlock, 0, s>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), rows, cols, slope, eps);
+  } else {
+    const int per_row = cols * static_cast<int>(sizeof(T)) / kVecBytes;
+    const int err = dispatch_vecs(vecs, [&](auto k) {
+      norm_rows_vec_kernel<T, kLrelu, decltype(k)::value><<<grid, kThreadsPerBlock, 0, s>>>(
+          static_cast<const uint4*>(x), static_cast<uint4*>(y), rows, per_row, lanes_log2,
+          cols, slope, eps);
+    });
+    if (err) return err;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -333,26 +423,43 @@ int launch_norm_rows(const void* x, void* y, int64_t rows, int cols, int dtype,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename T>
+int launch_lrelu_norm_rows_bwd_typed(const void* x, const void* g, void* dx, int64_t rows,
+                                     int cols, float slope, float eps, cudaStream_t s) {
+  int lanes_log2 = 0, vecs = 0;
+  norm_rows_plan(pointer_bits(x, g, dx), cols, static_cast<int>(sizeof(T)), &lanes_log2,
+                 &vecs);
+  dim3 grid;
+  if (const int err = row_grid(rows, cols, block_rows(lanes_log2, vecs), &grid)) return err;
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  if (vecs == 0) {
+    lrelu_norm_rows_bwd_kernel<T><<<grid, kThreadsPerBlock, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T*>(dx), rows, cols,
+        slope, eps);
+  } else {
+    const int per_row = cols * static_cast<int>(sizeof(T)) / kVecBytes;
+    const int err = dispatch_vecs(vecs, [&](auto k) {
+      lrelu_norm_rows_bwd_vec_kernel<T, decltype(k)::value><<<grid, kThreadsPerBlock, 0, s>>>(
+          static_cast<const uint4*>(x), static_cast<const uint4*>(g), static_cast<uint4*>(dx),
+          rows, per_row, lanes_log2, cols, slope, eps);
+    });
+    if (err) return err;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_lrelu_norm_rows_bwd(const void* x, const void* g, void* dx, int64_t rows,
                                int cols, int dtype, float slope, float eps,
                                void* stream) {
-  dim3 grid;
-  if (const int err = row_grid(rows, cols, kWarpsPerBlock, &grid)) return err;
-  if (rows == 0) return static_cast<int>(cudaSuccess);
-  const dim3 block(kThreadsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    lrelu_norm_rows_bwd_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g),
-        static_cast<float*>(dx), rows, cols, slope, eps);
-  } else if (dtype == 1) {
-    lrelu_norm_rows_bwd_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
-        static_cast<__nv_bfloat16*>(dx), rows, cols, slope, eps);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_lrelu_norm_rows_bwd_typed<float>(x, g, dx, rows, cols, slope, eps, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1) {
+    return launch_lrelu_norm_rows_bwd_typed<__nv_bfloat16>(x, g, dx, rows, cols, slope, eps,
+                                                           s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -369,15 +476,17 @@ int pggan_lrelu_pixel_norm_fwd(const void* x, void* y, int64_t rows, int cols,
   return launch_norm_rows<true>(x, y, rows, cols, dtype, slope, eps, stream);
 }
 
-// The branch the two forwards take for x, y and cols: *lanes lanes a row and
-// *vecs 16-byte vectors a lane, or 0 and 0 for the generic branch. Touches
-// no memory behind x or y.
-int pggan_norm_rows_plan(const void* x, const void* y, int cols, int dtype, int* lanes,
+// The branch the row kernels take for cols values a row at pointers a and b
+// (the forwards' x and y; the backward's x and g, or g and dx: the plan is
+// the same function of every pointer of the call, and a null pointer
+// counts as aligned): *lanes lanes a row and *vecs 16-byte vectors a lane,
+// or 0 and 0 for the generic branch. Touches no memory behind a or b.
+int pggan_norm_rows_plan(const void* a, const void* b, int cols, int dtype, int* lanes,
                          int* vecs) {
   const int bytes = elem_bytes(dtype);
   if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
   int lanes_log2 = 0;
-  norm_rows_plan(x, y, cols, bytes, &lanes_log2, vecs);
+  norm_rows_plan(pointer_bits(a, b), cols, bytes, &lanes_log2, vecs);
   *lanes = *vecs == 0 ? 0 : 1 << lanes_log2;
   return static_cast<int>(cudaSuccess);
 }

@@ -41,7 +41,8 @@ _SIGNATURES = {
     "pggan_lrelu_pixel_norm_fwd": (_c_int, [_c_void_p, _c_void_p, _c_int64,
                                             _c_int, _c_int, _c_float, _c_float,
                                             _c_void_p]),
-    # x, y, cols, dtype -> lanes a row, vectors a lane (0, 0: generic branch)
+    # a, b (x and y, or x and g), cols, dtype -> lanes a row, vectors a lane
+    # (0, 0: generic branch)
     "pggan_norm_rows_plan": (_c_int, [_c_void_p, _c_void_p, _c_int, _c_int,
                                       ctypes.POINTER(_c_int), ctypes.POINTER(_c_int)]),
     # x, g, dx, rows, cols, dtype, slope, eps, stream
@@ -52,6 +53,9 @@ _SIGNATURES = {
     "pggan_minibatch_stddev_stat": (_c_int, [_c_void_p, _c_void_p, _c_int64,
                                              _c_int64, _c_int, _c_int, _c_float,
                                              _c_void_p]),
+    # x, f, dtype -> values a load (4 or 8: vector branch; 1: generic branch)
+    "pggan_minibatch_stddev_plan": (_c_int, [_c_void_p, _c_int64, _c_int,
+                                             ctypes.POINTER(_c_int)]),
     # x, b (or null), y, n, cols, x dtype, b dtype, slope, gain, stream
     "pggan_bias_lrelu_gain": (_c_int, [_c_void_p, _c_void_p, _c_void_p, _c_int64,
                                        _c_int, _c_int, _c_int, _c_float, _c_float,

@@ -22,9 +22,10 @@ backward, which runs through D's minibatch-stddev, composes.
 `lrelu_pixel_norm` is a `custom_vjp` there, first order only (G is
 differentiated once), so its backward is the backward kernel, marked
 `once_differentiable`. Where autograd will not record the call (x does not
-require grad, or grad is disabled, as when sampling), `pixel_norm` and
-`lrelu_pixel_norm` call their forward without the `autograd.Function`, whose
-`apply` costs more host time than a small launch.
+require grad, or grad is disabled, as when sampling), `pixel_norm`,
+`lrelu_pixel_norm` and `minibatch_stddev_stat` call their forward without
+the `autograd.Function`, whose `apply` costs more host time than a small
+launch.
 
 Layout: the normalised axis is the channel axis. A 2-D input is a contiguous
 [B, C] tensor; a 4-D input is a logical NCHW tensor in `torch.channels_last`
@@ -190,11 +191,11 @@ def _check_groups(x: torch.Tensor, sg: int) -> None:
 def kernel_samples(x: torch.Tensor, sg: int) -> Tuple[int, int]:
     """Check that the minibatch-stddev kernel takes `x` as it is; return
     (N, F). Each sample must be one contiguous row of F values in the same
-    order: a contiguous tensor, or a channels_last 4-D one."""
+    order: a channels_last 4-D tensor (the path's layout, checked first) or
+    a contiguous one."""
     _check_dtype(x)
     _check_groups(x, sg)
-    if not (x.is_contiguous() or (x.ndim == 4 and x.is_contiguous(
-            memory_format=torch.channels_last))):
+    if not (x.is_contiguous(memory_format=_row_format(x)) or x.is_contiguous()):
         raise ValueError(
             "the minibatch-stddev input must be contiguous or channels_last; got "
             f"strides {x.stride()} for shape {tuple(x.shape)}")
@@ -257,19 +258,34 @@ def _launch_rows(name: str, entry: str, x: torch.Tensor, *scalars: float) -> tor
     return y
 
 
-def row_kernel_plan(x: torch.Tensor) -> Tuple[int, int]:
-    """The branch the forward row kernels take for x and an output of its
-    own (16-byte aligned): (lanes a row, 16-byte vectors a lane) for the
-    vector branch, (0, 0) for the generic one. The C side decides; this
-    asks it, and reads no memory behind the pointers."""
+def row_kernel_plan(x: torch.Tensor,
+                    g: Optional[torch.Tensor] = None) -> Tuple[int, int]:
+    """The branch the forward row kernels take for x, or the backward for x
+    and its gradient g, each with an output of its own (a fresh allocation,
+    16-byte aligned): (lanes a row, 16-byte vectors a lane) for the vector
+    branch, (0, 0) for the generic one. The C side decides; this asks it,
+    and reads no memory behind the pointers."""
     _, cols = kernel_rows(x)
     lanes, vecs = ctypes.c_int(), ctypes.c_int()
     err = _build.load_library().pggan_norm_rows_plan(
-        x.data_ptr(), 0, cols, _DTYPE_CODES[x.dtype], ctypes.byref(lanes),
-        ctypes.byref(vecs))
+        x.data_ptr(), 0 if g is None else g.data_ptr(), cols, _DTYPE_CODES[x.dtype],
+        ctypes.byref(lanes), ctypes.byref(vecs))
     if err != 0:
         raise RuntimeError(f"pggan_norm_rows_plan: CUDA error {err}")
     return lanes.value, vecs.value
+
+
+def minibatch_stddev_plan(x: torch.Tensor, sg: int) -> int:
+    """The branch the minibatch-stddev kernel takes for x: the values one
+    load reads, 4 (f32) or 8 (bf16) on the 16-byte vector branch, 1 on the
+    generic one. The C side decides; this asks it."""
+    _, f = kernel_samples(x, sg)
+    per_load = ctypes.c_int()
+    err = _build.load_library().pggan_minibatch_stddev_plan(
+        x.data_ptr(), f, _DTYPE_CODES[x.dtype], ctypes.byref(per_load))
+    if err != 0:
+        raise RuntimeError(f"pggan_minibatch_stddev_plan: CUDA error {err}")
+    return per_load.value
 
 
 def _pixel_norm_fwd(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -311,7 +327,7 @@ def _minibatch_stddev_stat_fwd(x: torch.Tensor, sg: int, eps: float) -> torch.Te
         return minibatch_stddev_stat_plain(x, sg, eps)
     n, f = kernel_samples(x, sg)
     _cuda_or_raise("minibatch_stddev_stat", x)
-    out = torch.empty((n // sg,), dtype=torch.float32, device=x.device)
+    out = x.new_empty((n // sg,), dtype=torch.float32)
     _call("minibatch_stddev_stat", "pggan_minibatch_stddev_stat", x,
           x.data_ptr(), out.data_ptr(), n, f, int(sg), _DTYPE_CODES[x.dtype],
           float(eps))
@@ -444,7 +460,9 @@ def lrelu_pixel_norm(x: torch.Tensor, slope: float = 0.2,
 def minibatch_stddev_stat(x: torch.Tensor, sg: int, eps: float = EPS) -> torch.Tensor:
     """The per-group statistic [N // sg], f32
     (`pallas_kernels.minibatch_stddev_stat`; the caller picks sg)."""
-    return _MinibatchStddevStat.apply(x, int(sg), float(eps))
+    if torch.is_grad_enabled() and x.requires_grad:     # autograd records the call
+        return _MinibatchStddevStat.apply(x, int(sg), float(eps))
+    return _minibatch_stddev_stat_fwd(x, int(sg), float(eps))
 
 
 def bias_lrelu_gain(x: torch.Tensor, b: Optional[torch.Tensor] = None,

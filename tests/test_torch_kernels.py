@@ -109,10 +109,12 @@ def test_launch_refuses_non_cuda_device():
 
 
 @pytest.mark.parametrize("shape", [(4, 8, 8, 32), (16, 512), (2, 4, 4, 513),
-                                   (2, 3, 3, 16)])
+                                   (2, 3, 3, 16), (2, 4, 4, 64), (2, 2, 2, 128),
+                                   (1, 2, 2, 256)])
 def test_lrelu_pixel_norm_bwd_plain_matches_pallas(shape):
     """The plain backward against `_lrelu_pn_bwd_rule` (the Pallas backward
-    kernel, interpret mode) on the same x and cotangent g."""
+    kernel, interpret mode) on the same x and cotangent g, at the widths
+    whose branch on the card is the vector one (C = 64-512) and ragged ones."""
     x, g = _rand(shape, seed=11 + shape[-1]), _rand(shape, seed=12 + shape[-1])
     (want,) = pk._lrelu_pn_bwd_rule(0.2, 1e-8, jnp.asarray(x), jnp.asarray(g))
     got = kernels.lrelu_pixel_norm_bwd_plain(_to_torch(x), _to_torch(g), 0.2, 1e-8)
@@ -160,8 +162,16 @@ def test_pixel_norm_grads_match_jax_jvp():
     np.testing.assert_allclose(g2.numpy(), want2, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("name, rule", [("pixel_norm", "_PixelNorm"),
-                                        ("lrelu_pixel_norm", "_LreluPixelNorm")])
+RULES = [("pixel_norm", "_PixelNorm"), ("lrelu_pixel_norm", "_LreluPixelNorm"),
+         ("minibatch_stddev_stat", "_MinibatchStddevStat")]
+
+
+def _extra_args(name):
+    """minibatch_stddev_stat's subgroup size; the row kernels take none."""
+    return (2,) if name == "minibatch_stddev_stat" else ()
+
+
+@pytest.mark.parametrize("name, rule", RULES)
 @pytest.mark.parametrize("mode", ["input without grad", "under no_grad"])
 def test_forward_without_recording_skips_autograd_rule(monkeypatch, name, rule, mode):
     """When autograd will not record the call, the public forward calls the
@@ -172,14 +182,32 @@ def test_forward_without_recording_skips_autograd_rule(monkeypatch, name, rule, 
     monkeypatch.setattr(getattr(kernels, rule), "apply",
                         lambda *a: applied.append(a) or apply(*a))
     x = _to_torch(_rand((2, 4, 4, 24), seed=18))
+    args = _extra_args(name)
     if mode == "input without grad":
-        y = getattr(kernels, name)(x)
+        y = getattr(kernels, name)(x, *args)
     else:
         with torch.no_grad():
-            y = getattr(kernels, name)(x.requires_grad_(True))
+            y = getattr(kernels, name)(x.requires_grad_(True), *args)
     assert y.grad_fn is None and not y.requires_grad
     assert not applied
-    assert torch.equal(y, getattr(kernels, name + "_plain")(x.detach()))
+    assert torch.equal(y, getattr(kernels, name + "_plain")(x.detach(), *args))
+
+
+@pytest.mark.parametrize("name, rule", RULES)
+def test_recording_call_goes_through_autograd_rule(monkeypatch, name, rule):
+    """When autograd records the call (R1's double backward runs through
+    minibatch_stddev_stat's rule), the public forward goes through the
+    rule's `apply` once and the output's grad_fn is the rule's backward."""
+    applied = []
+    apply = getattr(kernels, rule).apply
+    monkeypatch.setattr(getattr(kernels, rule), "apply",
+                        lambda *a: applied.append(a) or apply(*a))
+    x = _to_torch(_rand((2, 4, 4, 24), seed=19)).requires_grad_(True)
+    args = _extra_args(name)
+    y = getattr(kernels, name)(x, *args)
+    assert len(applied) == 1
+    assert type(y.grad_fn).__name__ == f"{rule}Backward"
+    assert torch.equal(y.detach(), getattr(kernels, name + "_plain")(x.detach(), *args))
 
 
 @pytest.mark.parametrize("name", ["pixel_norm", "lrelu_pixel_norm", "lrelu_pixel_norm_bwd"])
@@ -204,6 +232,23 @@ def test_launch_output_strides_match_plain(monkeypatch, name, shape):
 
 MB_CASES = [((16, 4, 4, 32), 4), ((6, 4, 4, 16), 6), ((2, 4, 4, 8), 2),
             ((8, 24), 4)]
+
+
+@pytest.mark.parametrize("fmt", [torch.channels_last, torch.contiguous_format])
+def test_minibatch_stddev_launch_output(monkeypatch, fmt):
+    """The launch path takes a channels_last or contiguous [N, C, H, W]
+    tensor as [N, F] rows and allocates an f32 [N // sg] output on x's
+    device. Meta tensors reach the allocation without a card; the launch
+    itself is recorded."""
+    monkeypatch.setattr(kernels, "_cuda_or_raise", lambda *a: None)
+    calls = []
+    monkeypatch.setattr(kernels, "_call", lambda *a: calls.append(a))
+    x = torch.zeros(8, 4, 3, 3, device="meta", dtype=torch.bfloat16).to(memory_format=fmt)
+    y = kernels.minibatch_stddev_stat(x, 4)
+    assert (y.shape, y.dtype, y.device) == ((2,), torch.float32, x.device)
+    ((name, entry, _, _, _, n, f, sg, dtype, _),) = calls
+    assert (name, entry, n, f, sg, dtype) == ("minibatch_stddev_stat",
+                                              "pggan_minibatch_stddev_stat", 8, 36, 4, 1)
 
 
 @pytest.mark.parametrize("shape, sg", MB_CASES)

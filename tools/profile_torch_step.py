@@ -35,8 +35,8 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH, SCALE, ALPHA = 16, 6, 0.5
-PORT_KERNELS = ("norm_rows_vec_kernel", "norm_rows_kernel", "lrelu_norm_rows_bwd_kernel",
-                "mb_stddev_kernel", "bias_lrelu_gain_kernel")
+PORT_KERNELS = ("norm_rows_vec_kernel", "norm_rows_kernel", "lrelu_norm_rows_bwd_vec_kernel",
+                "lrelu_norm_rows_bwd_kernel", "mb_stddev_kernel", "bias_lrelu_gain_kernel")
 
 
 def main(argv=None) -> int:

@@ -1,24 +1,26 @@
 #!/usr/bin/env python3
-"""Call and device times of the forward row kernels (`pixel_norm`,
-`lrelu_pixel_norm`) of one checkout of this repository, or of two in turns,
-on one CUDA card.
+"""Call and device times of the row kernels (`pixel_norm`,
+`lrelu_pixel_norm`, `lrelu_pixel_norm_bwd`) and `minibatch_stddev_stat` of
+one checkout of this repository, or of two in turns, on one CUDA card.
 
     python3 tools/time_row_kernels.py [--root DIR]
     python3 tools/time_row_kernels.py --ab OTHER_ROOT [--root DIR]
 
 With `--root` (default: this checkout) it imports `pggan_tpu_torch` from
-DIR, builds its kernels and runs this checkout's chip_smoke.py phase 6
-timing (`time_kernels`) on them: each kernel at pixel_norm's two path shapes
-([16, 512], [16, 4, 4, 512]) and at the three largest conv-epilogue shapes
-of the 256² model, f32 and bf16, the call time (eager calls), the device
-time (calls captured in a CUDA graph and replayed) and the plain version's
-call time, pixel_norm's 4-D shapes also against F.rms_norm. It prints
-chip_smoke's lines and then one JSON object. With `--ab` it runs that in
-four processes, OTHER_ROOT, DIR, DIR, OTHER_ROOT, and prints for each entry
-the mean of each checkout's two runs and the runs themselves (A =
-OTHER_ROOT, B = DIR), so two
-versions are compared on one card in one call. Needs a card; imports nothing
-of JAX.
+DIR, builds its kernels and runs this checkout's chip_smoke.py phase 6 and
+10b timing (`time_kernels`, `time_train_kernels`) on them: the forwards at
+pixel_norm's two path shapes ([16, 512], [16, 4, 4, 512]) and at the three
+largest conv-epilogue shapes of the 256² model, the backward at those three,
+minibatch_stddev_stat at [16, 4, 4, 512] sg 4, f32 and bf16: the call time
+(eager calls), the device time (calls captured in a CUDA graph and
+replayed) and the plain version's call time; pixel_norm's 4-D shapes also
+against F.rms_norm, and minibatch_stddev_stat's call beside pixel_norm's in
+the same turns. Only wrapper calls that every checkout of the port has are
+made. It prints chip_smoke's lines and then one JSON object. With `--ab` it
+runs that in four processes, OTHER_ROOT, DIR, DIR, OTHER_ROOT, and prints
+for each entry the mean of each checkout's two runs and the runs
+themselves (A = OTHER_ROOT, B = DIR), so two versions are compared on one
+card in one call. Needs a card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -48,8 +50,8 @@ def _chip_smoke():
 
 def time_root(root: str) -> dict:
     """{"kernel shape dtype": {"call_ms", "device_ms", "plain_ms"[,
-    "rms_norm_call_ms", "rms_norm_device_ms"]}} for the package under
-    `root`, from chip_smoke's phase 6 timing (`time_kernels`)."""
+    "rms_norm_call_ms", "rms_norm_device_ms" | "pixel_norm_call_ms"]}} for
+    the package under `root`, from chip_smoke's phase 6 and 10b timing."""
     smoke = _chip_smoke()
     sys.path.insert(0, os.path.abspath(root))
     from pggan_tpu_torch.ops import kernels
@@ -58,13 +60,17 @@ def time_root(root: str) -> dict:
         raise RuntimeError(f"imported pggan_tpu_torch from {found}, not {root}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     path_shapes = smoke.epilogue_shapes(DEPTHS, smoke.SCALE, smoke.BATCH)
+    card = smoke.card_line()
     with torch.no_grad():
-        times, rms = smoke.time_kernels(kernels, path_shapes, gen, smoke.card_line())
+        times, rms = smoke.time_kernels(kernels, path_shapes, gen, card)
+        train_times, pixel_norm_calls = smoke.time_train_kernels(kernels, gen, card)
     out = {}
-    for (name, shape, dt), (call, device, plain) in times.items():
+    for (name, shape, dt), (call, device, plain) in {**times, **train_times}.items():
         entry = {"call_ms": call, "device_ms": device, "plain_ms": plain}
         if name == "pixel_norm" and (shape, dt) in rms:
             entry.update(zip(("rms_norm_call_ms", "rms_norm_device_ms"), rms[(shape, dt)]))
+        if name == "minibatch_stddev_stat":
+            entry["pixel_norm_call_ms"] = pixel_norm_calls[dt]
         out[f"{name} {list(shape)} {str(dt)[6:]}"] = entry
     return out
 
