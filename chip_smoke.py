@@ -62,7 +62,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      points with the launch counts (1 per leaky-ReLU call, none otherwise)
      and kernel path vs plain path; a small case of every ops function on
      the card against the CPU, grid_sample's second derivatives included;
-     times of the kernel, its plain version and filtered_lrelu.
+     times of the kernel, its plain version and filtered_lrelu;
+ 12. training from a folder of images through `pggan_tpu_torch.train.main`:
+     48 JPEGs of 320x320 in two subdirectories, phase 8's checkpoint resumed
+     at full width, batch 16, bf16, with the threaded data pipeline (8
+     workers, 2 batches of prefetch): every batch reaching the step is uint8
+     [16,256,256,3] on the card, the launches per step are phase 8's, the
+     sample grids, metrics.jsonl and the config snapshot are checked; a
+     SIGTERM sent from a step hook checkpoints at the next step boundary and
+     returns cleanly, and the resume's first batch equals, byte for byte,
+     the uninterrupted run's at that step; the rates: the pipeline alone
+     (8 worker threads and 1), the trainer's imgs_per_sec on folder and on
+     synthetic data, and whether the host keeps up with the bf16 step.
 
 The second-to-last lines are a JSON object describing the kernels and the
 card's name and power limit; the last line is
@@ -80,6 +91,7 @@ import itertools
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -110,6 +122,15 @@ BWD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 MB_TOL = dict(rtol=1e-5, atol=1e-6)
 FORWARD_KERNELS = ("pixel_norm", "lrelu_pixel_norm")
 TRAIN_STEPS = 4            # steps of the training slice (phase 8)
+# Kernel launches of one bf16 r1 step at scale 6 (phases 8 and 12).
+STEP_LAUNCHES = {"pixel_norm": 4, "lrelu_pixel_norm": 26, "lrelu_pixel_norm_bwd": 13,
+                 "minibatch_stddev_stat": 3, "bias_lrelu_gain": 0}
+# Phase 12: the folder of images, the steps of each run, the step after
+# which SIGTERM arrives (counted from the run's first), and the batches the
+# pipeline alone is timed over after warming its decode cache.
+FOLDER_IMAGES, FOLDER_SIDE = 48, 320
+FOLDER_STEPS, SIGTERM_AFTER = 8, 2
+PIPELINE_BATCHES = 24
 # One f32 step (TF32 off), kernel path vs plain path (phase 9): bounds on
 # the relative loss difference and on the gradient difference relative to
 # the largest gradient of each network. cuDNN's default backward algorithms
@@ -751,8 +772,7 @@ def run_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp):
     for line in losses:
         d, g = line.replace("lossD:", "").split("| lossG:")
         check(np.isfinite(float(d)) and np.isfinite(float(g)), f"loss line {line!r}")
-    per_step = {"pixel_norm": 4, "lrelu_pixel_norm": 26, "lrelu_pixel_norm_bwd": 13,
-                "minibatch_stddev_stat": 3, "bias_lrelu_gain": 0}
+    per_step = STEP_LAUNCHES
     want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
     check(launches == want, f"launches {launches}, expected {want}")
     check(sum(bwd_plans.values()) == want["lrelu_pixel_norm_bwd"] and (0, 0) not in bwd_plans,
@@ -798,7 +818,7 @@ def step_runs(step_mod, kernels, equalized, cfg, arrays_g, arrays_d, gen, labels
     for label in labels:
         state = train_state(step_mod, cfg, arrays_g, arrays_d)
         with plain_kernels(kernels) if label == "plain" else contextlib.nullcontext():
-            metrics = step(state, batch, ALPHA, z1=z1, z2=z2)
+            metrics, _ = step(state, batch, ALPHA, z1=z1, z2=z2)
         runs[label] = ({k: float(v) for k, v in metrics.items()},
                        {n: equalized.adam_state_to_jax(o, net) for n, net, o in
                         (("D", state.D, state.opt_D), ("G", state.G, state.opt_G))})
@@ -864,7 +884,9 @@ def compare_step(step_mod, kernels, equalized, cfg, arrays_g, arrays_d):
 
 def time_train(step_mod, kernels, cfg, arrays_g, arrays_d, gen, card):
     """Phase 10a: step ms, img/s and peak memory of the R1 step and of the
-    step without R1, in bf16, f32 with TF32 off and f32 with TF32 on."""
+    step without R1, in bf16, f32 with TF32 off and f32 with TF32 on.
+    Returns the bf16 step ms {R1: ms} (R1 True and False)."""
+    bf16_ms = {}
     batch = torch.randint(0, 256, (BATCH, RES, RES, 3), generator=gen, device=DEVICE,
                           dtype=torch.uint8)
     for label, dtype, tf32 in (("bf16", "bfloat16", False),
@@ -887,6 +909,8 @@ def time_train(step_mod, kernels, cfg, arrays_g, arrays_d, gen, card):
                 step(state, batch, ALPHA)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) / n * 1e3
+            if label == "bf16":
+                bf16_ms[r1] = ms
             peak = torch.cuda.max_memory_allocated() / 2 ** 20
             print(f"[10 times] train step {RES}x{RES} batch {BATCH} {label}, "
                   f"{'R1' if r1 else 'no R1 (lazy-window tail)'}: {ms:.2f} ms = "
@@ -894,6 +918,7 @@ def time_train(step_mod, kernels, cfg, arrays_g, arrays_d, gen, card):
                   f"(host clock over {n} steps after 2 warm-up) ({card})")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    return bf16_ms
 
 
 def time_train_kernels(kernels, gen, card):
@@ -1173,6 +1198,216 @@ def time_ops(kernels, ops, gen, card):
     return times
 
 
+# ---- phase 12: training from a folder of images ----------------------------
+
+def write_image_folder(root):
+    """FOLDER_IMAGES JPEGs of FOLDER_SIDE² in two subdirectories, one level
+    down each (so the glob recurses), from a numpy seed: a smooth colour
+    field plus noise, so the decode and the resize to 256² do real work."""
+    from PIL import Image
+    rs = np.random.RandomState(2024)
+    for i in range(FOLDER_IMAGES):
+        sub = os.path.join(root, f"part{i % 2}", "faces")
+        os.makedirs(sub, exist_ok=True)
+        low = Image.fromarray(rs.randint(0, 256, (10, 10, 3), dtype=np.uint8)).resize(
+            (FOLDER_SIDE, FOLDER_SIDE), Image.BILINEAR)
+        noise = rs.randint(-24, 25, (FOLDER_SIDE, FOLDER_SIDE, 3))
+        arr = np.clip(np.asarray(low, np.int16) + noise, 0, 255).astype(np.uint8)
+        Image.fromarray(arr).save(os.path.join(sub, f"{i:03d}.jpg"), quality=90)
+
+
+def folder_run(train_mod, kernels, argv, hook=None):
+    """One `pggan_tpu_torch.train.main` run, its output captured. Returns
+    (return code, the batches that reached the step in order, the config
+    main built, the output lines, the launches of the run, seconds).
+    `hook(trainer)` runs after each single step."""
+    from pggan_tpu_torch.data.pipeline import DataPipeline
+    from pggan_tpu_torch.train.trainer import ProgressiveGANTrainer
+
+    batches, made = [], {}
+    next_batch, step_once = DataPipeline.__next__, ProgressiveGANTrainer.train_step
+    create = train_mod.create_model
+
+    def recording_next(self):
+        batch = next_batch(self)
+        batches.append(batch)
+        return batch
+
+    def hooked_step(self):
+        images = step_once(self)
+        if hook is not None:
+            hook(self)
+        return images
+
+    def recording_create(cfg, **kwargs):
+        made["cfg"] = cfg.to_dict()
+        return create(cfg, **kwargs)
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), \
+            mock.patch.object(DataPipeline, "__next__", recording_next), \
+            mock.patch.object(ProgressiveGANTrainer, "train_step", hooked_step), \
+            mock.patch.object(train_mod, "create_model", recording_create):
+        rc = train_mod.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (rc, batches, made.get("cfg"), out.getvalue().splitlines(),
+            dict(kernels.launches), seconds)
+
+
+def read_metrics(run_dir, steps):
+    """metrics.jsonl of a run: one line per loss_cycle step of `steps`, with
+    the JAX trainer's keys (imgs_per_sec from the second line on). Returns
+    the imgs_per_sec values."""
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    check([m["step"] for m in lines] == steps, f"metrics.jsonl steps {[m['step'] for m in lines]}")
+    keys = {"step", "time", "L_D", "L_D_real", "L_D_fake", "L_D_r1", "L_G"}
+    for i, m in enumerate(lines):
+        check(set(m) == keys | ({"imgs_per_sec"} if i else set()),
+              f"metrics.jsonl keys {sorted(m)}")
+        check(all(np.isfinite(v) for v in m.values()), f"metrics.jsonl line {m}")
+    return [m["imgs_per_sec"] for m in lines[1:]]
+
+
+def time_pipeline(images):
+    """The pipeline alone at 256², batch 16, 2 batches of prefetch, onto the
+    card, with the decode cache filled: batches/s over PIPELINE_BATCHES
+    batches (the 2 already queued included), with 8 worker threads and with
+    1 (whether the threads scale). Returns {workers: batches/s}."""
+    from pggan_tpu_torch.data.dataset import ImageFolderDataset, split_dataset
+    from pggan_tpu_torch.data.pipeline import DataPipeline
+
+    dataset = ImageFolderDataset([images], SCALE, cache_decoded=True)
+    indices, _ = split_dataset(len(dataset))
+    rates = {}
+    for workers in (8, 1):
+        with DataPipeline(dataset, BATCH, indices=indices, num_workers=workers,
+                          prefetch_depth=2, seed=0, device=DEVICE) as pipe:
+            if not rates:                   # 4 epochs: every image decoded once
+                for _ in range(4 * (len(indices) // BATCH)):
+                    next(pipe)
+                check(len(dataset._cache) == len(indices),
+                      f"{len(dataset._cache)} images cached")
+            else:
+                next(pipe)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(PIPELINE_BATCHES):
+                batch = next(pipe)
+            torch.cuda.synchronize()
+            rates[workers] = PIPELINE_BATCHES / (time.perf_counter() - t0)
+        check(batch.device.type == torch.device(DEVICE).type and batch.dtype == torch.uint8,
+              "pipeline batch")
+    return rates
+
+
+def run_folder_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card, bf16_step_ms):
+    """Phase 12: train from a folder of images through the entry point,
+    interrupt a run with SIGTERM and resume it; then the rates."""
+    from PIL import Image
+    from pggan_tpu_torch.config import Config
+
+    t_phase = time.perf_counter()
+    _, _, _, start = train_checkpoint(ckpt_lib, cfg, depths, tmp)
+    images = os.path.join(tmp, "images")
+    write_image_folder(images)
+    config = os.path.join(tmp, "folder.yaml")
+    with open(config, "w") as f:                    # JSON is YAML
+        json.dump({"save_root": tmp, "data_backend": "folder", "dataset_root_list": [images],
+                   "batch_per_gpu": BATCH, "num_data_workers": 8, "prefetch_depth": 2,
+                   "loss_cycle": 2, "test_cycle": 4, "ckpt_cycle": 4}, f)
+    end = start + FOLDER_STEPS
+
+    def argv(run, ckpt_id, max_step=end, *extra):
+        return [run, "--config", config, "--ckpt_id", ckpt_id, "--max_step", str(max_step),
+                "--compute_dtype", "bfloat16", "--device", DEVICE, *extra]
+
+    # the uninterrupted run
+    rc, batches, run_cfg, lines, launches, seconds = folder_run(
+        train_mod, kernels, argv("folder", "smoke_init"))
+    for line in lines:
+        print(f"[12 folder]   {line}")
+    check(rc == 0, f"train main returned {rc}")
+    check(len(batches) == FOLDER_STEPS, f"{len(batches)} batches reached the step")
+    for b in batches:
+        check(b.dtype == torch.uint8 and tuple(b.shape) == (BATCH, RES, RES, 3)
+              and b.device.type == torch.device(DEVICE).type,
+              f"batch {b.dtype} {tuple(b.shape)} {b.device}")
+    want = {k: n * FOLDER_STEPS for k, n in STEP_LAUNCHES.items()}
+    check(launches == want, f"launches {launches}, expected {want}")
+    run_dir = os.path.join(tmp, "folder")
+    grid_steps = [s for s in range(start, end) if s % 4 == 0]
+    grids = sorted(os.listdir(os.path.join(run_dir, "imgs")))
+    check(grids == sorted(f"e{s}.jpg" for s in grid_steps), f"sample grids {grids}")
+    per_row = min(BATCH, 8)                         # 2 rows of 8, 2 px apart
+    grid_size = (per_row * (RES + 2) + 2, 2 * (RES + 4))
+    for name in grids:
+        with Image.open(os.path.join(run_dir, "imgs", name)) as img:
+            check(img.size == grid_size, f"{name}: {img.size}")
+    folder_rates = read_metrics(run_dir, [s for s in range(start, end) if s % 2 == 0])
+    snapshot = Config.from_yaml(os.path.join(run_dir, "config_folder.yaml"))
+    check(dict(snapshot) == run_cfg, "config_folder.yaml does not reload to the run's config")
+    print(f"[12 folder] pggan_tpu_torch.train.main trained from {FOLDER_IMAGES} JPEGs of "
+          f"{FOLDER_SIDE}x{FOLDER_SIDE} (2 subdirectories) for {FOLDER_STEPS} r1 steps at "
+          f"{RES}x{RES}, batch {BATCH}, bf16, from the scale-{SCALE} checkpoint at step "
+          f"{start}, in {seconds:.2f} s; every batch uint8 [{BATCH},{RES},{RES},3] on "
+          f"{batches[0].device}; launches {launches} = {FOLDER_STEPS} steps x phase 8's; "
+          f"grids {grids} of {grid_size[0]}x{grid_size[1]}; metrics.jsonl "
+          f"{len(folder_rates) + 1} lines; config_folder.yaml reloads to the run's config")
+
+    # the same steps on synthetic data
+    rc, _, _, _, _, synth_s = folder_run(
+        train_mod, kernels, argv("synthetic", "smoke_init", end, "--data_backend", "synthetic"))
+    check(rc == 0, f"synthetic run returned {rc}")
+    synth_rates = read_metrics(os.path.join(tmp, "synthetic"),
+                               [s for s in range(start, end) if s % 2 == 0])
+
+    # SIGTERM after a step, then the resume
+    cut = start + SIGTERM_AFTER
+
+    def sigterm(trainer):
+        if trainer.global_step == cut:
+            os.kill(os.getpid(), signal.SIGTERM)
+    handler = signal.getsignal(signal.SIGTERM)
+    rc, _, _, lines, _, _ = folder_run(train_mod, kernels, argv("cut", "smoke_init"), sigterm)
+    check(rc == 0, f"the interrupted run returned {rc}")
+    check(signal.getsignal(signal.SIGTERM) is handler, "SIGTERM handler not restored")
+    check(any(f"interrupted at step {cut + 1}" in line for line in lines),
+          "no interruption message")
+    saved = sorted(f for f in os.listdir(ckpt_lib.ckpt_dir(tmp, "cut")) if "latest" not in f)
+    check(f"G_{cut + 1}.npz" in saved and f"D_{cut + 1}.npz" in saved
+          and not any(f.endswith(f"_{end}.npz") for f in saved), f"checkpoints {saved}")
+    rc, resumed, _, lines, _, _ = folder_run(train_mod, kernels,
+                                             argv("cut", "cut", cut + 3))
+    check(rc == 0, f"the resumed run returned {rc}")
+    check(any(f"checkpoint cut@{cut + 1} restored" in line for line in lines),
+          "the resume did not start at the checkpoint")
+    check(torch.equal(resumed[0], batches[SIGTERM_AFTER + 1]),
+          "the resume's first batch differs from the uninterrupted run's")
+    print(f"[12 sigterm] SIGTERM after step {cut}: checkpoint at {cut + 1} ({saved}), clean "
+          f"return, handler restored; the resume started at {cut + 1} and its first batch "
+          f"equals the uninterrupted run's at {cut + 1} byte for byte")
+
+    pipeline_rates = time_pipeline(images)
+    r1_rate, tail_rate = (BATCH / bf16_step_ms[r1] * 1e3 for r1 in (True, False))
+    host_rate = pipeline_rates[8] * BATCH
+    print(f"[12 rates] card: {card}")
+    print(f"[12 rates] data pipeline alone ({RES}x{RES}, batch {BATCH}, prefetch 2, decode "
+          f"cache on, onto the card), over {PIPELINE_BATCHES} batches: 8 workers "
+          f"{pipeline_rates[8]:.2f} batches/s = {host_rate:.1f} img/s; 1 worker "
+          f"{pipeline_rates[1]:.2f} batches/s = {pipeline_rates[1] * BATCH:.1f} img/s")
+    print(f"[12 rates] trainer imgs_per_sec, bf16 r1 steps {start}-{end - 1}: folder data "
+          f"{folder_rates}, synthetic data {synth_rates} (host clock between loss lines; "
+          f"checkpoint and grid steps included)")
+    print(f"[12 rates] host keeps up with the bf16 R1 step ({r1_rate:.1f} img/s, phase 10): "
+          f"{'yes' if host_rate >= r1_rate else 'no'} ({host_rate / r1_rate:.2f}x); with the "
+          f"step without R1 ({tail_rate:.1f} img/s): {'yes' if host_rate >= tail_rate else 'no'}"
+          f" ({host_rate / tail_rate:.2f}x)")
+    print(f"[12 folder] phase 12 took {time.perf_counter() - t_phase:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1247,7 +1482,7 @@ def main() -> int:
     step_cfg["compute_dtype"] = "float32"
     compare_step(step_mod, kernels, equalized, step_cfg, arrays_g, arrays_d)
     print(f"[10 times] card: {card}")
-    time_train(step_mod, kernels, step_cfg, arrays_g, arrays_d, gen, card)
+    bf16_step_ms = time_train(step_mod, kernels, step_cfg, arrays_g, arrays_d, gen, card)
     train_times, _ = time_train_kernels(kernels, gen, card)
 
     # ---- the StyleGAN2-ops path ----
@@ -1259,6 +1494,10 @@ def main() -> int:
     check_ops_on_card(ops)
     print(f"[11 times] card: {card}")
     ops_times = time_ops(kernels, ops, gen, card)
+
+    # ---- training from a folder of images ----
+    with tempfile.TemporaryDirectory(prefix="pggan_smoke_folder_") as tmp:
+        run_folder_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card, bf16_step_ms)
 
     # Every kernel of the three paths at its largest f32 shape on them;
     # `launches` is the training run's count (the demo's is checked in

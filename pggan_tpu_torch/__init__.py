@@ -3,7 +3,9 @@
 The JAX package `pggan_tpu` is the reference; this package keeps its module
 names so each counterpart is easy to find. Ported so far: generator
 sampling (`pggan_tpu_torch.demo`), training (`pggan_tpu_torch.train`, the
-r1 and wgangp train step, the trainer with lazy R1 and checkpoints) and the
+r1 and wgangp train step, the trainer with lazy R1, folder and synthetic
+data through a prefetching pipeline, sample grids, metrics, SIGTERM
+checkpoints and exact resume) and the
 StyleGAN2-ops layer (`pggan_tpu_torch.ops`), with hand-written CUDA kernels
 for `pixel_norm`, `lrelu_pixel_norm` (forward and backward),
 `minibatch_stddev_stat` and `bias_lrelu_gain` (`ops/kernels.py`, `csrc/`).

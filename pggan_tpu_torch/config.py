@@ -1,10 +1,11 @@
 """YAML-backed attribute-style configuration — the counterpart of
-`pggan_tpu/config.py`, reduced to the keys the port reads.
+`pggan_tpu/config.py`.
 
 `Config` is a dict with attribute access. Keys it does not know are kept as
 they are, so a checkpoint's `args` (the JAX trainer's whole config) loads
-unchanged; the defaults below cover the keys the port reads when a config
-omits them, with the JAX package's values.
+unchanged. The defaults are the JAX package's table, key for key and value
+for value, including the keys only the JAX package reads; so the two
+packages agree on which keys a YAML file sets.
 
 Like the JAX package's config, it remembers which keys the user set (a
 config file value that differs from the default, a constructor argument or
@@ -15,11 +16,18 @@ resumed run keeps those and takes every other key from the checkpoint.
 from __future__ import annotations
 
 import copy
+import os
 from typing import Any, Dict, FrozenSet, Optional
 
-# Same values as `pggan_tpu/config.py:_DEFAULTS` for these keys.
+# Same keys and values as `pggan_tpu/config.py:_DEFAULTS`.
 _DEFAULTS: Dict[str, Any] = {
+    "model_id": "pggan",
+    "use_mGPU": False,
+    "use_wandb": False,
+    "wandb_alert_thres": 1000,
     "use_validation": False,
+    "valid_dataset_root": None,
+    "val_batches": 4,
     "dataset_root_list": [],
     "save_root": "train_result",
     # optimizer
@@ -37,40 +45,69 @@ _DEFAULTS: Dict[str, Any] = {
     "r1_interval": 1,
     # batch and run length
     "batch_per_gpu": 16,
-    "batch_schedule": None,
     "max_step": 2_000_000,
     # log cycles
     "loss_cycle": 10,
     "test_cycle": 1000,
     "ckpt_cycle": 10000,
-    "fid_cycle": 0,
     # model
     "latent_dim": 512,
     "input_dim": 3,
     "output_dim": 3,
     "init_bias_to_zero": True,
+    "max_depths": 7,
     "depths": [512, 512, 512, 512, 256, 128, 64],
+    # progressive schedule
+    "max_step_at_scale": [10000, 20000, 40000, 80000, 80000, 80000, 80000, 80000, 80000],
+    "alpha": 0.0,
+    "alpha_jump_start": [-1, 2000, 4000, 10000, 10000, 10000, 10000, 10000, 10000],
+    "alpha_jump_interval": [0, 100, 100, 100, 100, 100, 100, 100, 100],
+    "alpha_jump_Ntimes": [0, 100, 200, 400, 400, 400, 400, 400, 400],
     "LReLU_slope": 0.2,
     "generator_last_activation": None,
     "apply_pixel_norm": True,
     "apply_minibatch_norm": True,
     "equalized_lr": True,
     "decision_layer_size": 1,
-    # 'dilated' | 'auto' | bool | int (fuse when cout <= N); see
-    # models/generator.py for how each maps onto the two exact forms.
-    "fused_scale": "dilated",
-    # progressive schedule
-    "max_step_at_scale": [10000, 20000, 40000, 80000, 80000, 80000, 80000, 80000, 80000],
-    "alpha_jump_start": [-1, 2000, 4000, 10000, 10000, 10000, 10000, 10000, 10000],
-    "alpha_jump_interval": [0, 100, 100, 100, 100, 100, 100, 100, 100],
-    "alpha_jump_Ntimes": [0, 100, 200, 400, 400, 400, 400, 400, 400],
     # checkpoint resume
     "ckpt_id": None,
     "ckpt_step": None,
     "seed": 42,
     "compute_dtype": "float32",       # 'float32' | 'bfloat16'
-    "data_backend": "auto",           # 'auto' | 'synthetic' ('folder' waits)
+    "impl": "xla",                    # JAX package only
+    "data_backend": "auto",           # 'auto' | 'folder' | 'synthetic'
+    "data_backend_impl": "threads",   # JAX package only ('grain')
     "synthetic_dataset_size": 4096,
+    "num_data_workers": 8,
+    "prefetch_depth": 2,
+    # folder data (`data/dataset.py`): hflip + color jitter, the resized
+    # images decoded once a scale when they fit decode_cache_mb, else the
+    # on-disk resized store (`data/resized_store.py`)
+    "augment": True,
+    "cache_decoded": "auto",          # 'auto' | True | False
+    "decode_cache_mb": 8192,
+    "resized_store": "auto",          # 'auto' | True | False
+    "resized_store_dir": None,        # None → '<save_root>/resized_store'
+    # JAX package only: the device-resident data cache, XLA options,
+    # chunked dispatch, rematerialization and packed top levels
+    "device_data_cache": False,
+    "device_cache_mb": 256,
+    # per-scale batch override: {scale_index: batch}; None → batch_per_gpu
+    "batch_schedule": None,
+    "donate_buffers": True,
+    "compiler_options": None,
+    "steps_per_dispatch": 1,
+    "remat": "auto",
+    # 'dilated' | 'auto' | bool | int (fuse when cout <= N); see
+    # models/generator.py for how each maps onto the two exact forms.
+    "fused_scale": "dilated",
+    "hires_pack": "auto",
+    # FID / KID (not ported: the trainer refuses fid_cycle > 0)
+    "fid_cycle": 0,
+    "fid_samples": 512,
+    "fid_extractor": "random_conv",
+    "fid_weights": None,
+    # G weight average (PGGAN paper §A.1); 0.0 = off
     "g_ema_decay": 0.0,
 }
 
@@ -119,3 +156,15 @@ class Config(dict):
 
     def to_dict(self) -> Dict[str, Any]:
         return copy.deepcopy(dict(self))
+
+    def save_yaml(self) -> str:
+        """Write the effective config to {save_root}/{run_id}/config_{run_id}.yaml
+        (`pggan_tpu/config.py:314-328`); returns the path."""
+        import yaml
+
+        run_dir = os.path.join(str(self.save_root), str(self.run_id))
+        os.makedirs(run_dir, exist_ok=True)
+        path = os.path.join(run_dir, f"config_{self.run_id}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(self.to_dict(), f, sort_keys=False)
+        return path

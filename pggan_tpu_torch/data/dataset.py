@@ -1,29 +1,167 @@
-"""Training data of the port — the counterpart of the parts of
-`pggan_tpu/data/` the trainer needs on one card:
+"""Training data of the port — the counterpart of `pggan_tpu/data/dataset.py`:
 
-  * `SyntheticDataset` (`dataset.py:233-253`): a fixed random image per
-    index, no filesystem;
-  * `split_dataset` (`dataset.py:334-341`): the 70/30 index split;
-  * `BatchIterator`: uint8 batches [B, R, R, 3] on the step's device, drawn
-    in the index and seed order of `DataPipeline._producer`
-    (`pipeline.py:134-198`) for one rank: a permutation per epoch from
-    `RandomState(seed)`, drop_last, one augmentation seed per sample from
-    `RandomState(seed + 1)`, and a `start_batch` fast-forward that advances
-    both streams without loading an image, so a resumed run continues the
-    stream where the interrupted one stopped.
+  * `list_image_paths`: the reference's recursive `*.*g` glob;
+  * `ImageFolderDataset`: a folder of images, each resized bilinearly to
+    the scale's resolution, then flipped and colour-jittered from the
+    sample's own `RandomState`, in the JAX package's order of draws; the
+    resized images are decoded once a scale into RAM when they fit
+    `decode_cache_mb`, else read from the on-disk resized store;
+  * `SyntheticDataset`: a fixed random image per index, no filesystem;
+  * `split_dataset`: the 70/30 index split; `build_dataset`: the factory.
 
-One thread, no prefetch. Folder datasets, the threaded and native loaders
-and the device-resident cache are not ported yet (ROADMAP.md queue 1).
+Images stay uint8 [R, R, 3] on the host; the train step normalises them on
+the device. Only the PIL path is ported: the JAX package's C++ loader
+(`pggan_tpu/native/`) is not, and `use_native=True` raises. The batches
+come from `data/pipeline.py:DataPipeline`.
 """
 
 from __future__ import annotations
 
+import glob
 import os
-from typing import Iterator, Optional, Sequence, Tuple
+import threading
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
-from PIL import Image
+from PIL import Image, ImageEnhance
+
+_IMG_PATTERN = "*.*g"   # the reference's glob: jpg / jpeg / png
+
+
+def list_image_paths(dataset_root_list: Sequence[str]) -> List[str]:
+    """Every `*.*g` file in each root and in every directory below it
+    (`pggan_tpu/data/dataset.py:31-39`)."""
+    paths: List[str] = []
+    for root in dataset_root_list:
+        paths.extend(glob.glob(os.path.join(root, _IMG_PATTERN)))
+        for sub_root, dirs, _ in os.walk(root):
+            for d in dirs:
+                paths.extend(glob.glob(os.path.join(sub_root, d, _IMG_PATTERN)))
+    return paths
+
+
+def _apply_color_jitter(img: Image.Image, rng: np.random.RandomState,
+                        brightness: float = 0.2, contrast: float = 0.2,
+                        saturation: float = 0.2, hue: float = 0.01) -> Image.Image:
+    """torchvision's ColorJitter semantics: each factor drawn from
+    U[max(0, 1-v), 1+v] (hue U[-h, h]), applied in a random order."""
+    ops = []
+    if brightness > 0:
+        ops.append(("brightness", rng.uniform(max(0.0, 1 - brightness), 1 + brightness)))
+    if contrast > 0:
+        ops.append(("contrast", rng.uniform(max(0.0, 1 - contrast), 1 + contrast)))
+    if saturation > 0:
+        ops.append(("saturation", rng.uniform(max(0.0, 1 - saturation), 1 + saturation)))
+    if hue > 0:
+        ops.append(("hue", rng.uniform(-hue, hue)))
+    rng.shuffle(ops)
+    for name, f in ops:
+        if name == "brightness":
+            img = ImageEnhance.Brightness(img).enhance(f)
+        elif name == "contrast":
+            img = ImageEnhance.Contrast(img).enhance(f)
+        elif name == "saturation":
+            img = ImageEnhance.Color(img).enhance(f)
+        else:
+            hsv = np.array(img.convert("HSV"), dtype=np.int16)
+            hsv[..., 0] = (hsv[..., 0] + int(round(f * 255))) % 256
+            img = Image.fromarray(hsv.astype(np.uint8), "HSV").convert("RGB")
+    return img
+
+
+class ImageFolderDataset:
+    """A folder of images as augmented uint8 [R, R, 3] samples.
+
+    Decoding and resizing is the dominant host cost, and the progressive
+    schedule revisits every image many times a scale. So when the resized
+    images of a scale fit `decode_cache_mb` (`cache_decoded='auto'`), each
+    is decoded once a scale and the per-draw flip and jitter run on the
+    cached array; the cache quantises to uint8 where the PIL pipeline does
+    anyway (after the resize), so a cached draw equals an uncached one.
+    Beyond the budget the resized store, a [N, R, R, 3] memmap on disk built
+    once, takes its place when `store_dir` is known."""
+
+    def __init__(self, dataset_root_list: Sequence[str], scale_index: int = 0,
+                 *, is_master: bool = False, augment: bool = True,
+                 paths: Optional[Sequence[str]] = None,
+                 use_native: Optional[bool] = None,
+                 cache_decoded="auto", decode_cache_mb: int = 8192,
+                 resized_store="auto", store_dir: Optional[str] = None):
+        if use_native:
+            raise ValueError("the native image loader is not ported to "
+                             "pggan_tpu_torch; only the PIL path is")
+        self.paths = list(paths) if paths is not None else list_image_paths(dataset_root_list)
+        if not self.paths:
+            raise FileNotFoundError(f"no images found under {list(dataset_root_list)!r}")
+        self.resolution = 2 ** (scale_index + 2)
+        self.augment = augment
+        cache_bytes = len(self.paths) * self.resolution ** 2 * 3
+        if cache_decoded == "auto" or cache_decoded is None:
+            cache = cache_bytes <= int(decode_cache_mb) * (1 << 20)
+        else:
+            cache = bool(cache_decoded)
+        self._store = None
+        if resized_store is True:
+            if store_dir is None:
+                raise ValueError("resized_store=true requires resized_store_dir")
+            cache = False
+        use_store = (resized_store is True
+                     or (resized_store == "auto" and not cache and store_dir is not None))
+        self._cache: Optional[dict] = {} if cache else None
+        self._cache_lock = threading.Lock()
+        if use_store:
+            from pggan_tpu_torch.data.resized_store import ResizedStore
+            self._store = ResizedStore(store_dir, self.paths, self.resolution,
+                                       self._resize_uncached, verbose=is_master)
+        if is_master:
+            where = f", decode cache {cache_bytes / 1e6:.1f} MB" if cache else ""
+            if self._store is not None:
+                where = f", resized store {self._store.nbytes / 1e6:.1f} MB on disk"
+            print(f"Dataset of {len(self)} images constructed for the training "
+                  f"(PIL loader{where}).")
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def _resize_uncached(self, path: str) -> np.ndarray:
+        """Decode and resize to the training resolution, no augmentation
+        (torchvision's Resize default: bilinear)."""
+        img = Image.open(path).convert("RGB")
+        img = img.resize((self.resolution, self.resolution), Image.BILINEAR)
+        return np.asarray(img, dtype=np.uint8)
+
+    def _cached(self, path: str) -> np.ndarray:
+        arr = self._cache.get(path)
+        if arr is None:
+            arr = self._resize_uncached(path)
+            with self._cache_lock:        # racing first draws both decode;
+                arr = self._cache.setdefault(path, arr)     # one wins
+        return arr
+
+    def resized_array(self, index: int) -> np.ndarray:
+        """The decoded and resized image, not augmented."""
+        path = self.paths[index % len(self.paths)]
+        if self._cache is not None:
+            return self._cached(path)
+        if self._store is not None:
+            return self._store.read(index)
+        return self._resize_uncached(path)
+
+    def get(self, index: int, rng: np.random.RandomState) -> np.ndarray:
+        if self._cache is None and self._store is None:
+            path = self.paths[index % len(self.paths)]
+            img = Image.open(path).convert("RGB")
+            img = img.resize((self.resolution, self.resolution), Image.BILINEAR)
+        else:
+            arr = self.resized_array(index)
+            if not self.augment:
+                return arr
+            img = Image.fromarray(arr)
+        if self.augment:
+            if rng.rand() < 0.5:
+                img = img.transpose(Image.FLIP_LEFT_RIGHT)
+            img = _apply_color_jitter(img, rng)
+        return np.asarray(img, dtype=np.uint8)
 
 
 class SyntheticDataset:
@@ -52,65 +190,22 @@ def split_dataset(n: int, train_frac: float = 0.7, seed: int = 42
     return perm[:n_train], perm[n_train:]
 
 
-def build_dataset(cfg, scale_index: int) -> SyntheticDataset:
-    """`data_backend`: 'synthetic', or 'auto' without an existing dataset
-    root. Folder datasets raise until they are ported."""
+def build_dataset(cfg, scale_index: int, *, is_master: bool = False):
+    """`data_backend`: 'auto' → folder if a root of dataset_root_list
+    exists, else synthetic; 'folder' / 'synthetic' force one
+    (`pggan_tpu/data/dataset.py:343-368`)."""
     backend = str(cfg.data_backend)
     roots = list(cfg.dataset_root_list or [])
     if backend == "auto":
         backend = "folder" if any(os.path.isdir(r) for r in roots) else "synthetic"
+    if backend == "folder":
+        store_dir = cfg.resized_store_dir
+        if store_dir is None:
+            store_dir = os.path.join(str(cfg.save_root), "resized_store")
+        return ImageFolderDataset(
+            roots, scale_index, is_master=is_master, augment=bool(cfg.augment),
+            cache_decoded=cfg.cache_decoded, decode_cache_mb=int(cfg.decode_cache_mb),
+            resized_store=cfg.resized_store, store_dir=store_dir)
     if backend == "synthetic":
         return SyntheticDataset(int(cfg.synthetic_dataset_size), scale_index)
-    if backend == "folder":
-        raise NotImplementedError(
-            "folder datasets are not ported to pggan_tpu_torch yet (ROADMAP.md "
-            "queue 1); use data_backend: synthetic")
     raise ValueError(f"unknown data backend {backend!r}")
-
-
-class BatchIterator:
-    """Endless uint8 batches of `batch_size` images on `device`."""
-
-    def __init__(self, dataset, batch_size: int, *,
-                 indices: Optional[Sequence[int]] = None, seed: int = 42,
-                 start_batch: int = 0, device="cpu"):
-        self.dataset = dataset
-        self.batch_size = int(batch_size)
-        indices = np.asarray(indices if indices is not None else np.arange(len(dataset)))
-        if len(indices) < self.batch_size:
-            # small datasets: sample with replacement rather than starve
-            indices = np.tile(indices, -(-self.batch_size // len(indices)))
-        self.indices = indices
-        self.seed = int(seed)
-        self.start_batch = max(0, int(start_batch))
-        self.device = torch.device(device)
-        self._stream = self._batches()
-
-    def _draws(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        """(dataset indices, augmentation seeds) of every batch, in order."""
-        rng_master = np.random.RandomState(self.seed)
-        rng_aug = np.random.RandomState((self.seed + 1) % (2**31 - 1))
-        b_size = self.batch_size
-        while True:
-            order = rng_master.permutation(len(self.indices))
-            for b in range(max(len(order) // b_size, 1)):       # drop_last
-                sel = order[b * b_size:(b + 1) * b_size]
-                if len(sel) < b_size:
-                    sel = np.concatenate([sel, order[:b_size - len(sel)]])
-                idxs = self.indices[sel]
-                yield idxs, rng_aug.randint(0, 2**31 - 1, size=len(idxs))
-
-    def _batches(self) -> Iterator[torch.Tensor]:
-        draws = self._draws()
-        for _ in range(self.start_batch):
-            next(draws)
-        for idxs, seeds in draws:
-            batch = np.stack([self.dataset.get(int(i), np.random.RandomState(int(s)))
-                              for i, s in zip(idxs, seeds)])
-            yield torch.from_numpy(batch).to(self.device)
-
-    def __iter__(self) -> "BatchIterator":
-        return self
-
-    def __next__(self) -> torch.Tensor:
-        return next(self._stream)

@@ -1,0 +1,157 @@
+"""The prefetching, endless batch stream of the trainer — the counterpart of
+`pggan_tpu/data/pipeline.py:DataPipeline`.
+
+  * a producer thread draws each batch's dataset indices and augmentation
+    seeds, and a pool of `num_workers` threads loads its images (PIL
+    releases the GIL while it decodes and resizes);
+  * batches are uint8 [B, R, R, 3], put on the step's device by the
+    producer thread while the step before runs, into a queue of
+    `prefetch_depth` batches;
+  * one permutation an epoch, drop_last, and under `num_replicas` ranks
+    round-robin shards of that shared permutation;
+  * `start_batch` fast-forwards both random streams without loading an
+    image, so a resumed run continues the stream where the interrupted one
+    stopped.
+
+The index and seed draws are the JAX package's, number for number, so both
+packages feed a step the same images.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, Optional, Sequence
+
+import numpy as np
+import torch
+
+_JOIN_S = 10.0
+
+
+class DataPipeline:
+    def __init__(self, dataset, batch_size: int, *,
+                 indices: Optional[Sequence[int]] = None,
+                 num_workers: int = 8, prefetch_depth: int = 2,
+                 seed: int = 42, rank: int = 0, num_replicas: int = 1,
+                 start_batch: int = 0, device="cpu"):
+        """`batch_size` is this rank's batch. The permutation stream is
+        seeded by `seed` on every rank, so the ranks' shards are disjoint
+        pieces of one epoch; the augmentation stream by
+        seed + 1 + 1_000_003·rank, so no two ranks jitter alike."""
+        if not 0 <= int(rank) < int(num_replicas):
+            raise ValueError(f"rank {rank} outside [0, {num_replicas})")
+        self.dataset = dataset
+        self.batch_size = int(batch_size)
+        self.rank = int(rank)
+        self.num_replicas = int(num_replicas)
+        self.indices = np.asarray(indices if indices is not None
+                                  else np.arange(len(dataset)))
+        if len(self.indices) < self.batch_size * self.num_replicas:
+            # small datasets: sample with replacement rather than starve
+            reps = -(-self.batch_size * self.num_replicas // len(self.indices))
+            self.indices = np.tile(self.indices, reps)
+        self.num_workers = max(1, int(num_workers))
+        self.prefetch_depth = max(1, int(prefetch_depth))
+        self.seed = int(seed)
+        self.start_batch = max(0, int(start_batch))
+        self.device = torch.device(device)
+        self._queue: queue.Queue = queue.Queue(maxsize=self.prefetch_depth)
+        self._stop = threading.Event()
+        self._pool = ThreadPoolExecutor(max_workers=self.num_workers,
+                                        thread_name_prefix="pggan-data")
+        self._thread = threading.Thread(target=self._producer, daemon=True,
+                                        name="pggan-data-producer")
+        self._thread.start()
+
+    # -- producer ------------------------------------------------------------
+    def _draws(self) -> Iterator:
+        """(dataset indices, augmentation seeds) of every batch, in order
+        (`pggan_tpu/data/pipeline.py:134-198`)."""
+        rng_master = np.random.RandomState(self.seed)
+        rng_aug = np.random.RandomState(
+            (self.seed + 1 + 1_000_003 * self.rank) % (2**31 - 1))
+        while True:
+            order = rng_master.permutation(len(self.indices))
+            # equal shards, so no rank runs ahead into the next epoch
+            order = order[:len(order) - len(order) % self.num_replicas]
+            order = order[self.rank::self.num_replicas]
+            for b in range(max(len(order) // self.batch_size, 1)):    # drop_last
+                sel = order[b * self.batch_size:(b + 1) * self.batch_size]
+                if len(sel) < self.batch_size:          # tiny dataset
+                    sel = np.concatenate([sel, order[:self.batch_size - len(sel)]])
+                idxs = self.indices[sel]
+                yield idxs, rng_aug.randint(0, 2**31 - 1, size=len(idxs))
+
+    def _to_device(self, batch: np.ndarray) -> torch.Tensor:
+        """The batch on the step's device. On a card: a pinned host copy,
+        then an asynchronous copy to the card on this thread's current
+        stream, which is the device's default stream, the one the train
+        step runs on; so CUDA orders the copy before every kernel that
+        reads the batch, and no cross-stream wait is needed. A side stream
+        would let the copy overlap the step, but it moves about 3 MB (256²,
+        batch 16) against a step of tens of milliseconds. The pinned
+        buffer is a fresh allocation per batch: PyTorch's pinned-memory
+        allocator records an event on the stream of a non_blocking copy
+        and does not hand the block out again before that event completes,
+        so it is not reused while the copy reads it."""
+        host = torch.from_numpy(batch)
+        if self.device.type == "cuda":
+            return host.pin_memory().to(self.device, non_blocking=True)
+        return host.to(self.device)
+
+    def _producer(self) -> None:
+        skip = self.start_batch
+        for idxs, seeds in self._draws():
+            if self._stop.is_set():
+                return
+            if skip > 0:                # fast-forward: draw, load nothing
+                skip -= 1
+                continue
+            try:
+                futures = [self._pool.submit(self.dataset.get, int(i),
+                                             np.random.RandomState(int(s)))
+                           for i, s in zip(idxs, seeds)]
+                batch = self._to_device(np.stack([f.result() for f in futures]))
+            except Exception as exc:    # handed to the consumer, raised there
+                if not self._stop.is_set():     # else close() cut the batch
+                    self._enqueue(exc)
+                return
+            self._enqueue(batch)
+
+    def _enqueue(self, item) -> None:
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.5)
+                return
+            except queue.Full:
+                continue
+
+    # -- consumer ------------------------------------------------------------
+    def __iter__(self) -> "DataPipeline":
+        return self
+
+    def __next__(self) -> torch.Tensor:
+        item = self._queue.get()
+        if isinstance(item, Exception):
+            raise item
+        return item
+
+    def close(self) -> None:
+        """Stop the producer and the workers; waits up to _JOIN_S for the
+        producer to finish the image loads it started."""
+        self._stop.set()
+        try:                            # unblock a producer waiting to put
+            while True:
+                self._queue.get_nowait()
+        except queue.Empty:
+            pass
+        self._pool.shutdown(wait=False, cancel_futures=True)
+        self._thread.join(_JOIN_S)
+
+    def __enter__(self) -> "DataPipeline":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

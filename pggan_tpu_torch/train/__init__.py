@@ -3,13 +3,16 @@
 
     python -m pggan_tpu_torch.train RUN_ID [--config configs.yaml]
         [--ckpt_id ID] [--ckpt_step N] [--max_step N] [--loss_mode r1|wgangp]
-        [--data_backend auto|synthetic] [--compute_dtype float32|bfloat16]
-        [--device cuda]
+        [--data_backend auto|folder|synthetic] [--compute_dtype float32|bfloat16]
+        [--use_wandb] [--device cuda]
 
 Runs on the card (`--device cuda`, the default) and exits non-zero when
 there is none; `--device cpu` runs the plain PyTorch versions of the
-kernels. Checkpoints go to {save_root}/{run_id}/ckpt/ in the JAX package's
-format; `--ckpt_id` resumes from one written by either package.
+kernels. The run directory {save_root}/{run_id}/ gets the config snapshot
+`config_{run_id}.yaml`, `metrics.jsonl`, the sample grids `imgs/e{step}.jpg`
+and the checkpoints `ckpt/` in the JAX package's format; `--ckpt_id`
+resumes from one written by either package. SIGTERM or SIGINT checkpoints
+and exits 0.
 
 The modules: `step.py` (the train step), `trainer.py` (the loop, the
 schedule's jumps, checkpoints), `schedule.py` (the progressive schedule).
@@ -24,7 +27,7 @@ import sys
 import torch
 
 from pggan_tpu_torch.config import Config
-from pggan_tpu_torch.train.trainer import ProgressiveGANTrainer
+from pggan_tpu_torch.registry import create_model
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -35,6 +38,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--config", default="configs.yaml")
     parser.add_argument("--ckpt_id", default=None)
     parser.add_argument("--ckpt_step", default=None, type=int)
+    parser.add_argument("--use_wandb", action="store_true", default=None)
     parser.add_argument("--max_step", type=int, default=None)
     parser.add_argument("--loss_mode", choices=["r1", "wgangp"], default=None)
     parser.add_argument("--data_backend", choices=["auto", "folder", "synthetic"],
@@ -54,8 +58,8 @@ def main(argv=None) -> int:
         print("usage: python -m pggan_tpu_torch.train RUN_ID [--flags]", file=sys.stderr)
         return 2
     cfg.run_id = run_id
-    for key in ("ckpt_id", "ckpt_step", "max_step", "loss_mode", "data_backend",
-                "compute_dtype"):
+    for key in ("ckpt_id", "ckpt_step", "use_wandb", "max_step", "loss_mode",
+                "data_backend", "compute_dtype"):
         value = getattr(ns, key)
         if value is not None:
             cfg[key] = value
@@ -64,5 +68,10 @@ def main(argv=None) -> int:
         print("pggan_tpu_torch.train: no CUDA card (torch.cuda.is_available() is "
               "False); pass --device cpu to train on the CPU", file=sys.stderr)
         return 1
-    ProgressiveGANTrainer(cfg, device=device).setup().fit(run_id, max_step=ns.max_step)
+    cfg.save_yaml()                     # the config snapshot, as train.py:99
+    trainer = create_model(cfg, device=device)
+    try:
+        trainer.fit(run_id, max_step=ns.max_step)
+    finally:
+        trainer.close()
     return 0

@@ -82,9 +82,12 @@ def normalize_images(img: torch.Tensor) -> torch.Tensor:
 def make_train_step(cfg, scale_index: int, *, include_r1: Optional[bool] = None,
                     r1_scale: Optional[float] = None) -> Callable:
     """Build the step for one progressive scale. Returns
-    step(state, img_real, alpha, *, z1=None, z2=None, eps=None) → metrics,
-    a dict of 0-d tensors (L_D, L_D_real, L_D_fake, L_D_r1 or L_D_gp and
-    L_D_eps, L_G).
+    step(state, img_real, alpha, *, z1=None, z2=None, eps=None) →
+    (metrics, (real, fake)): metrics a dict of 0-d tensors (L_D, L_D_real,
+    L_D_fake, L_D_r1 or L_D_gp and L_D_eps, L_G); real the faded real
+    batch (f32, NHWC, in [-1, 1]) and fake the G-phase images (NHWC, in the
+    compute dtype), both detached and on the step's device, for the sample
+    grid (`step.py:399`).
 
     `include_r1` (loss_mode 'r1'): None or True applies the penalty, False
     leaves it out (the tail of a lazy window). `r1_scale` multiplies the
@@ -104,7 +107,8 @@ def make_train_step(cfg, scale_index: int, *, include_r1: Optional[bool] = None,
 
     def step(state: TrainState, img_real: torch.Tensor, alpha: float, *,
              z1: Optional[torch.Tensor] = None, z2: Optional[torch.Tensor] = None,
-             eps: Optional[torch.Tensor] = None) -> Metrics:
+             eps: Optional[torch.Tensor] = None
+             ) -> Tuple[Metrics, Tuple[torch.Tensor, torch.Tensor]]:
         G, D = state.G, state.D
         device = next(G.parameters()).device
         batch = img_real.shape[0]
@@ -172,6 +176,7 @@ def make_train_step(cfg, scale_index: int, *, include_r1: Optional[bool] = None,
                 for e, p in zip(state.G_ema.state_dict().values(),
                                 G.state_dict().values()):
                     e.mul_(ema_decay).add_(p.to(e.dtype), alpha=1.0 - ema_decay)
-        return {k: v.detach() for k, v in metrics.items()}
+        return ({k: v.detach() for k, v in metrics.items()},
+                (real.detach(), fake2.detach()))
 
     return step

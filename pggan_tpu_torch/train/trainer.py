@@ -2,36 +2,45 @@
 `pggan_tpu/train/trainer.py`.
 
 It holds G, D, their Adam optimizers, the optional G weight average, the
-progressive schedule and the batch stream. A scale jump grows both
-networks, rebuilds the data stream at the new resolution, starts fresh
-optimizers (the reference discards Adam's moments at every jump) and
-builds the next scale's step. Lazy R1 (`r1_interval > 1`) runs the JAX
-trainer's window cadence (`_chunk_window`, `trainer.py:388-426`): a window
-of k steps between host actions starts with one step whose penalty is
-scaled by k, and its k−1 other steps skip the penalty.
+progressive schedule and the batch stream (`data/pipeline.py`). A scale
+jump grows both networks, rebuilds the data stream at the new resolution,
+starts fresh optimizers (the reference discards Adam's moments at every
+jump) and builds the next scale's step. Lazy R1 (`r1_interval > 1`) runs
+the JAX trainer's window cadence (`_chunk_window`, `trainer.py:388-426`): a
+window of k steps between host actions starts with one step whose penalty
+is scaled by k, and its k−1 other steps skip the penalty.
 
-`fit` checkpoints before each `ckpt_cycle` step (the saved state holds
-exactly that many updates), prints the loss lines with `imgs_per_sec` every
-`loss_cycle` steps, and checkpoints at the end. Checkpoints are the JAX
-package's npz files, params and Adam state (`utils/checkpoint.py`), written
-synchronously; a JAX checkpoint resumes here and the port's resume in JAX.
+`fit` runs the JAX trainer's loop (`trainer.py:428-527`): a checkpoint
+before each `ckpt_cycle` step (the saved state holds exactly that many
+updates), the loss line and a `metrics.jsonl` line with `imgs_per_sec`
+every `loss_cycle` steps, the [real, fake] sample grid every `test_cycle`
+steps, and a checkpoint at the end. SIGTERM and SIGINT stop the loop at the
+next step boundary with a checkpoint. Checkpoints are the JAX package's npz
+files (`utils/checkpoint.py`), written by a background thread from copies
+made on the device; they also hold the latent generator's state, so a
+resumed run continues the run it resumes bit for bit (with the data
+stream's `start_batch`). A JAX checkpoint resumes here and the port's
+resume in JAX.
 
-Not ported yet (ROADMAP.md queue 1): the sample-image grid of `test_cycle`,
-validation and FID/KID (refused when configured), SIGTERM
-checkpoint-then-exit, asynchronous checkpoint writes, `MetricLogger`,
-multiple cards and `steps_per_dispatch`.
+Not ported yet (ROADMAP.md queue 1): validation and FID/KID (refused when
+configured), multiple cards and `steps_per_dispatch`.
 """
 
 from __future__ import annotations
 
+import base64
+import copy
+import signal
 import time
-from typing import Dict, Optional
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from pggan_tpu_torch.config import Config
-from pggan_tpu_torch.data.dataset import BatchIterator, build_dataset, split_dataset
+from pggan_tpu_torch.data.dataset import build_dataset, split_dataset
+from pggan_tpu_torch.data.pipeline import DataPipeline
 from pggan_tpu_torch.losses.collector import LossCollector
 from pggan_tpu_torch.models.discriminator import Discriminator
 from pggan_tpu_torch.models.generator import Generator
@@ -41,9 +50,16 @@ from pggan_tpu_torch.ops.equalized import (adam_state_to_jax,
 from pggan_tpu_torch.train.schedule import ProgressiveSchedule
 from pggan_tpu_torch.train.step import TrainState, init_train_state, make_train_step
 from pggan_tpu_torch.utils import checkpoint as ckpt_lib
+from pggan_tpu_torch.utils.image import save_image as save_image_grid
+from pggan_tpu_torch.utils.logging import MetricLogger
 
 # Seed stream of the latents (the JAX trainer folds 2 into its base key).
 _KEY_LATENTS = 2
+# `__meta__` key of the latent generator's state. The JAX loader reads only
+# `rng` (a JAX key), so the port writes its state under its own key.
+RNG_META_KEY = "torch_rng"
+
+Images = Tuple[torch.Tensor, torch.Tensor]
 
 
 def _latent_rng(seed: int, global_step: int, device: torch.device) -> torch.Generator:
@@ -52,6 +68,9 @@ def _latent_rng(seed: int, global_step: int, device: torch.device) -> torch.Gene
 
 
 class ProgressiveGANTrainer:
+    """Create with `pggan_tpu_torch.registry.create_model(cfg)`, or
+    directly and then `setup()`."""
+
     def __init__(self, cfg: Config, *, device="cuda"):
         if cfg.use_validation or cfg.fid_cycle:
             raise NotImplementedError(
@@ -63,11 +82,17 @@ class ProgressiveGANTrainer:
         self.global_step = 0
         self.state: Optional[TrainState] = None
         self.loss_collector: Optional[LossCollector] = None
-        self._batches: Optional[BatchIterator] = None
+        self.logger: Optional[MetricLogger] = None
+        self.dataset = None
+        self._pipeline: Optional[DataPipeline] = None
         self._step_fn = None
         self._r1_interval = 1
         self._last_metrics: Dict[str, torch.Tensor] = {}
         self._rate_anchor = None
+        # one writer thread: checkpoints are written in the order they are
+        # taken, and a failed write raises at the next save
+        self._ckpt_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="pggan-ckpt")
+        self._ckpt_future: Optional[Future] = None
 
     # -- construction ---------------------------------------------------------
     def setup(self) -> "ProgressiveGANTrainer":
@@ -109,18 +134,22 @@ class ProgressiveGANTrainer:
 
     def set_dataset(self) -> None:
         """The dataset at the current resolution and its 70/30 split."""
-        self.dataset = build_dataset(self.cfg, self.schedule.scale_index)
+        self.dataset = build_dataset(self.cfg, self.schedule.scale_index, is_master=True)
         self._train_indices, _ = split_dataset(len(self.dataset), 0.7,
                                                seed=int(self.cfg.seed))
 
     def set_data_iterator(self) -> None:
         """The batch stream of this scale, fast-forwarded past the batches
-        already consumed at it (`trainer.py:221-231`)."""
+        already consumed at it (`trainer.py:204-258`)."""
+        if self._pipeline is not None:
+            self._pipeline.close()
         sched = self.schedule
         scale_start = (sched.next_scale_jump_step
                        - int(sched.max_step_at_scale[sched.scale_index]))
-        self._batches = BatchIterator(
+        self._pipeline = DataPipeline(
             self.dataset, self.batch_size, indices=self._train_indices,
+            num_workers=int(self.cfg.num_data_workers),
+            prefetch_depth=int(self.cfg.prefetch_depth),
             seed=int(self.cfg.seed) + sched.scale_index,
             start_batch=max(0, self.global_step - scale_start), device=self.device)
 
@@ -168,10 +197,12 @@ class ProgressiveGANTrainer:
             self._step_fn = make_train_step(cfg, self.schedule.scale_index)
 
     # -- the loop -------------------------------------------------------------
-    def train_step(self) -> None:
-        """One D+G iteration on the next batch."""
-        self._last_metrics = self._step_fn(self.state, next(self._batches),
-                                           float(self.schedule.alpha))
+    def train_step(self) -> Images:
+        """One D+G iteration on the next batch; returns (faded real, fake)
+        for the sample grid."""
+        self._last_metrics, images = self._step_fn(
+            self.state, next(self._pipeline), float(self.schedule.alpha))
+        return images
 
     def train_window(self, k: int) -> None:
         """A lazy-R1 window of k steps: the first applies the penalty scaled
@@ -180,16 +211,17 @@ class ProgressiveGANTrainer:
         scale, alpha = self.schedule.scale_index, float(self.schedule.alpha)
         lead = make_train_step(self.cfg, scale, include_r1=True, r1_scale=float(k))
         tail = make_train_step(self.cfg, scale, include_r1=False)
-        lead_metrics = lead(self.state, next(self._batches), alpha)
+        lead_metrics, _ = lead(self.state, next(self._pipeline), alpha)
         for _ in range(k - 1):
-            self._last_metrics = tail(self.state, next(self._batches), alpha)
+            self._last_metrics, _ = tail(self.state, next(self._pipeline), alpha)
         self._last_metrics["L_D_r1"] = lead_metrics["L_D_r1"]
 
     def _chunk_window(self, step: int, total: int) -> int:
         """The length of the lazy-R1 window that starts at `step`: up to
         r1_interval steps, cut at the first host action (a log, image, FID
         or checkpoint cycle, a scale or alpha jump) or at `total`; 1 when
-        R1 is not lazy (`trainer.py:388-426`, without steps_per_dispatch)."""
+        R1 is not lazy (`trainer.py:388-426`, without steps_per_dispatch).
+        So the sample grid and the log lines always come from single steps."""
         if self._r1_interval <= 1:
             return 1
         k = min(self._r1_interval, total - step)
@@ -207,58 +239,126 @@ class ProgressiveGANTrainer:
 
     def fit(self, run_id: Optional[str] = None, *,
             max_step: Optional[int] = None) -> "ProgressiveGANTrainer":
-        """The training loop (`trainer.py:428-527`)."""
+        """The training loop (`trainer.py:428-527`). SIGTERM / SIGINT set a
+        flag that the loop reads between steps (and lazy-R1 windows); it
+        then checkpoints the state and returns, so `--ckpt_id {run_id}`
+        resumes where it stopped. Signal handlers can only be installed on
+        the main thread; elsewhere the loop runs without them."""
         cfg = self.cfg
         if run_id is not None:
             cfg.run_id = run_id
+        if self.logger is None:
+            self.logger = MetricLogger(cfg.save_root, cfg.run_id, model_id=str(cfg.model_id),
+                                       use_wandb=bool(cfg.use_wandb))
         total = min(sum(cfg.max_step_at_scale), cfg.max_step)
         if max_step is not None:
             total = min(total, max_step)
+
+        interrupted = []
+
+        def on_signal(signum, frame):
+            interrupted.append(signum)
+
+        previous = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                previous[sig] = signal.signal(sig, on_signal)
+            except ValueError:          # not the main thread
+                pass
         start_step = step = self.global_step
         self._rate_anchor = (time.time(), step)
-        while step < total:
-            # before the step: the saved state holds exactly `step` updates
-            if step % cfg.ckpt_cycle == 0 and step != start_step:
-                self.save_checkpoint(step)
-            self.check_jump(step)
-            k = self._chunk_window(step, total)
-            if k > 1:
-                self.train_window(k)
-                step += k
+        try:
+            while step < total and not interrupted:
+                # before the step: the saved state holds exactly `step` updates
+                if step % cfg.ckpt_cycle == 0 and step != start_step:
+                    self.save_checkpoint(step)
+                self.check_jump(step)
+                k = self._chunk_window(step, total)
+                if k > 1:
+                    self.train_window(k)
+                    step += k
+                    self.global_step = step
+                    continue
+                images = self.train_step()
+                if step % cfg.loss_cycle == 0:
+                    self.loss_collector.update(self._last_metrics)
+                    now = time.time()
+                    if self._rate_anchor and step > self._rate_anchor[1]:
+                        t0, s0 = self._rate_anchor
+                        self.loss_collector.loss_dict["imgs_per_sec"] = round(
+                            (step - s0) * self.batch_size / (now - t0), 1)
+                    self._rate_anchor = (now, step)
+                    self.logger.log(step, self.loss_collector.loss_dict)
+                    self.loss_collector.print_loss(step)
+                if step % cfg.test_cycle == 0:
+                    self.save_image(images, step)
+                step += 1
                 self.global_step = step
-                continue
-            self.train_step()
-            if step % cfg.loss_cycle == 0:
-                self.loss_collector.update(self._last_metrics)
-                now = time.time()
-                if self._rate_anchor and step > self._rate_anchor[1]:
-                    t0, s0 = self._rate_anchor
-                    self.loss_collector.loss_dict["imgs_per_sec"] = round(
-                        (step - s0) * self.batch_size / (now - t0), 1)
-                self._rate_anchor = (now, step)
-                self.loss_collector.print_loss(step)
-            step += 1
-            self.global_step = step
-        self.save_checkpoint(step)
+            self.save_checkpoint(step, wait=True)
+            if interrupted:
+                print(f"[pggan_tpu_torch] interrupted at step {step}; state "
+                      f"checkpointed — resume with --ckpt_id {cfg.run_id}")
+        finally:
+            for sig, handler in previous.items():
+                if handler is not None:     # None: a handler not set from Python
+                    signal.signal(sig, handler)
         return self
 
-    # -- checkpoints ----------------------------------------------------------
-    def save_checkpoint(self, global_step: int) -> None:
+    # -- io -------------------------------------------------------------------
+    def save_image(self, images: Images, step: int) -> str:
+        """The [real, fake] grid of the step's first 8 images to
+        {save_root}/{run_id}/imgs/e{step}.jpg; only those cross to the host."""
+        real, fake = (x[:8].float().cpu().numpy() for x in images)
+        return save_image_grid(self.cfg.save_root, self.cfg.run_id, step, "imgs",
+                               [real, fake])
+
+    def save_checkpoint(self, global_step: int, *, wait: bool = False) -> None:
         """G and D (params + Adam state) and, with the average on, Gema
-        (params), in the JAX package's format."""
+        (params), in the JAX package's format, with the latent generator's
+        state in `__meta__`. The files are written by the writer thread;
+        `wait=True` returns once they are.
+
+        Adam updates the weights and its moments in place, so the writer
+        cannot read the live tensors while steps go on: the state is copied
+        on the device here, before the next step is enqueued, and on the
+        same stream, so the copies hold the state at `global_step`. The
+        writer then moves the copies to the host and frees them."""
+        if self._ckpt_future is not None:
+            future, self._ckpt_future = self._ckpt_future, None
+            future.result()             # one write at a time; raise its error
         cfg, state = self.cfg, self.state
-        meta = {"args": cfg.to_dict(), "schedule": self.schedule.state_dict()}
-        for name, net, opt in (("G", state.G, state.opt_G), ("D", state.D, state.opt_D)):
-            ckpt_lib.save_checkpoint(cfg.save_root, cfg.run_id, name, global_step,
-                                     params=params_to_jax(net),
-                                     opt=adam_state_to_jax(opt, net), meta=meta)
-        if state.G_ema is not None:
-            ckpt_lib.save_checkpoint(cfg.save_root, cfg.run_id, "Gema", global_step,
-                                     params=params_to_jax(state.G_ema), meta=meta)
+        rng_state = state.rng.get_state().numpy().tobytes()
+        meta = {"args": cfg.to_dict(), "schedule": self.schedule.state_dict(),
+                RNG_META_KEY: {"device": state.rng.device.type,
+                               "state": base64.b64encode(rng_state).decode("ascii")}}
+        # The last step's gradients are not state: dropped, not copied.
+        state.opt_G.zero_grad(set_to_none=True)
+        state.opt_D.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            snapshot = copy.deepcopy((state.G, state.opt_G, state.D, state.opt_D,
+                                      state.G_ema))
+        save_root, run_id = cfg.save_root, cfg.run_id
+
+        def write():
+            G, opt_G, D, opt_D, G_ema = snapshot
+            for name, net, opt in (("G", G, opt_G), ("D", D, opt_D)):
+                ckpt_lib.save_checkpoint(save_root, run_id, name, global_step,
+                                         params=params_to_jax(net),
+                                         opt=adam_state_to_jax(opt, net), meta=meta)
+            if G_ema is not None:
+                ckpt_lib.save_checkpoint(save_root, run_id, "Gema", global_step,
+                                         params=params_to_jax(G_ema), meta=meta)
+
+        self._ckpt_future = self._ckpt_pool.submit(write)
+        if wait:
+            future, self._ckpt_future = self._ckpt_future, None
+            future.result()
 
     def load_checkpoint(self) -> None:
         """Restore args and schedule, build both networks at the saved scale,
-        then load weights and Adam state strictly (`trainer.py:861-954`)."""
+        then load weights and Adam state strictly (`trainer.py:861-954`),
+        and the latent generator's state where the checkpoint holds one for
+        this device type."""
         cfg = self.cfg
         loaded = {}
         for name in ("G", "D"):
@@ -304,5 +404,31 @@ class ProgressiveGANTrainer:
                     f"{self.global_step}")
             else:
                 load_params_from_jax(state.G_ema, ema[0])
+        saved = meta.get(RNG_META_KEY)
+        if saved is not None and saved["device"] == self.device.type:
+            state.rng.set_state(torch.frombuffer(
+                bytearray(base64.b64decode(saved["state"])), dtype=torch.uint8))
+        else:
+            why = ("it holds no torch generator state" if saved is None else
+                   f"its generator state is for {saved['device']}, not {self.device.type}")
+            print(f"[pggan_tpu_torch] latents reseeded from (seed, step {self.global_step}): "
+                  f"{why}")
         print(f"checkpoint {cfg.ckpt_id}@{self.global_step} restored "
               f"(scale={self.schedule.scale_index}, alpha={self.schedule.alpha})")
+
+    def close(self) -> None:
+        """Wait for a checkpoint still being written, then stop the writer,
+        the data pipeline and the metrics file."""
+        if self._ckpt_future is not None:
+            future, self._ckpt_future = self._ckpt_future, None
+            try:
+                future.result()
+            except Exception as exc:    # fit's own error is already on its way
+                print(f"[pggan_tpu_torch] checkpoint write failed: {exc!r}")
+        self._ckpt_pool.shutdown(wait=True)
+        if self._pipeline is not None:
+            self._pipeline.close()
+            self._pipeline = None
+        if self.logger is not None:
+            self.logger.close()
+            self.logger = None

@@ -14,10 +14,11 @@ buffers, so their moments are written as zeros — what optax holds for them,
 since their gradient is zero (`ops/equalized.py:adam_state_to_jax`).
 
 The JAX trainer also writes the `rng` key of its latent stream into
-`__meta__`. The port writes none: a `torch.Generator` state is no JAX key.
-A JAX checkpoint's `rng` is ignored on resume, and a resumed port run draws
-its latents from a generator seeded by (seed, global_step), so it does not
-replay the latents of the run it resumes.
+`__meta__`; the port's trainer writes its `torch.Generator` state under
+`torch_rng` instead (a generator state is no JAX key, and the JAX loader
+reads only `rng`). A resume restores it on the same device type; a JAX
+checkpoint's `rng` is ignored, and such a resume draws its latents from a
+generator seeded by (seed, global_step).
 """
 
 from __future__ import annotations

@@ -1,7 +1,11 @@
 """Sample images to JPEG files: the denormalisation and the write that
-`demo.py:122-132` does (`pggan_tpu/utils/image.py` holds the grid variant)."""
+`demo.py:122-132` does, and the trainer's [real, fake] sample grid
+(`pggan_tpu/utils/image.py:32-78`)."""
 
 from __future__ import annotations
+
+import os
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -25,3 +29,41 @@ def write_jpeg(path: str, image: np.ndarray) -> None:
     except (ImportError, IOError):
         from PIL import Image
         Image.fromarray(image).save(path, quality=95)
+
+
+def make_grid_image(list_of_batches: Sequence[np.ndarray], *,
+                    max_per_row: int = 8, pad: int = 2) -> np.ndarray:
+    """One row per batch, at most `max_per_row` images side by side with
+    `pad` pixels around each, as torchvision's make_grid lays them out.
+    NHWC float arrays in [-1, 1] in, HWC float in [0, 1] out."""
+    rows: List[np.ndarray] = []
+    width = None
+    for batch in list_of_batches:
+        batch = np.asarray(batch)[:max_per_row]
+        n, h, w, c = batch.shape
+        canvas = np.zeros((h + 2 * pad, n * (w + pad) + pad, c), np.float32)
+        for i in range(n):
+            x0 = pad + i * (w + pad)
+            canvas[pad:pad + h, x0:x0 + w] = batch[i]
+        canvas = canvas * 0.5 + 0.5
+        if width is None:
+            width = canvas.shape[1]
+        if canvas.shape[1] < width:
+            canvas = np.pad(canvas, ((0, 0), (0, width - canvas.shape[1]), (0, 0)))
+        elif canvas.shape[1] > width:
+            width = canvas.shape[1]
+            rows = [np.pad(r, ((0, 0), (0, width - r.shape[1]), (0, 0))) for r in rows]
+        rows.append(canvas)
+    return np.clip(np.concatenate(rows, axis=0), 0.0, 1.0)
+
+
+def save_image(save_root: str, run_id: str, global_step: int, subdir: str,
+               list_of_batches: Sequence[np.ndarray]) -> str:
+    """Write the grid of `list_of_batches` to
+    {save_root}/{run_id}/{subdir}/e{global_step}.jpg; returns the path."""
+    dir_path = os.path.join(str(save_root), str(run_id), subdir)
+    os.makedirs(dir_path, exist_ok=True)
+    grid = (make_grid_image(list_of_batches) * 255.0).astype(np.uint8)
+    path = os.path.join(dir_path, f"e{global_step}.jpg")
+    write_jpeg(path, grid)
+    return path

@@ -40,7 +40,8 @@ from pggan_tpu.train.trainer import ProgressiveGANTrainer as JaxTrainer
 from pggan_tpu.utils import checkpoint as jax_ckpt
 from pggan_tpu_torch import train as port_train
 from pggan_tpu_torch.config import Config
-from pggan_tpu_torch.data.dataset import BatchIterator, SyntheticDataset
+from pggan_tpu_torch.data.dataset import SyntheticDataset
+from pggan_tpu_torch.data.pipeline import DataPipeline as PortPipeline
 from pggan_tpu_torch.losses import gan
 from pggan_tpu_torch.models import discriminator, generator
 from pggan_tpu_torch.ops.equalized import adam_state_to_jax, params_to_jax
@@ -93,10 +94,13 @@ def test_one_step_matches_make_train_step():
     state, new_state, want, img, z1, z2 = _jax_step()
     cfg = _port_cfg()
     port = _port_state(state, cfg)
-    got = port_step.make_train_step(cfg, 1)(
+    got, (real, fake) = port_step.make_train_step(cfg, 1)(
         port, torch.from_numpy(img), ALPHA, z1=torch.from_numpy(z1),
         z2=torch.from_numpy(z2))
     assert set(got) == set(want) == {"L_D", "L_D_real", "L_D_fake", "L_D_r1", "L_G"}
+    assert real.shape == fake.shape == (BATCH, RES, RES, 3)
+    assert real.dtype == fake.dtype == torch.float32
+    assert not real.requires_grad and not fake.requires_grad
     for key in want:
         np.testing.assert_allclose(float(got[key]), want[key], err_msg=key, **LOSS_TOL)
     for net, opt, jax_opt, jax_params, lr in (
@@ -115,9 +119,10 @@ def test_one_step_matches_make_train_step():
                                        atol=2 * lr, err_msg=key)
 
 
-def test_jax_checkpoint_resumes_in_the_port(tmp_path):
+def test_jax_checkpoint_resumes_in_the_port(tmp_path, capsys):
     """The JAX state after its step, written by the JAX package, restores
-    into the port's trainer: weights, Adam moments and count, schedule."""
+    into the port's trainer: weights, Adam moments and count, schedule; its
+    `rng` is a JAX key, so the latents are reseeded, and the run says so."""
     _, new_state, _, _, _, _ = _jax_step()
     cfg = _jax_cfg().to_dict()
     cfg.update(data_backend="synthetic", synthetic_dataset_size=32,
@@ -133,6 +138,8 @@ def test_jax_checkpoint_resumes_in_the_port(tmp_path):
     trainer = ProgressiveGANTrainer(
         Config({"ckpt_id": "jrun", "save_root": str(tmp_path)}), device="cpu").setup()
     assert trainer.global_step == 7 and trainer.schedule.state_dict() == schedule
+    assert "latents reseeded from (seed, step 7)" in capsys.readouterr().out
+    trainer.close()
     for net, opt, jax_params, jax_opt in (
             (trainer.state.G, trainer.state.opt_G, new_state.params_G, new_state.opt_state_G),
             (trainer.state.D, trainer.state.opt_D, new_state.params_D, new_state.opt_state_D)):
@@ -181,12 +188,12 @@ def test_skip_r1_step_fuses_real_and_fake_and_r1_scales():
     state, _, want, img, z1, z2 = _jax_step()
     cfg = _port_cfg()
     feed = dict(z1=torch.from_numpy(z1), z2=torch.from_numpy(z2))
-    plain = port_step.make_train_step(cfg, 1, include_r1=False)(
+    plain, _ = port_step.make_train_step(cfg, 1, include_r1=False)(
         _port_state(state, cfg), torch.from_numpy(img), ALPHA, **feed)
     assert float(plain["L_D_r1"]) == 0.0
     for key in ("L_D_real", "L_D_fake", "L_G"):
         np.testing.assert_allclose(float(plain[key]), want[key], err_msg=key, **LOSS_TOL)
-    scaled = port_step.make_train_step(cfg, 1, include_r1=True, r1_scale=4.0)(
+    scaled, _ = port_step.make_train_step(cfg, 1, include_r1=True, r1_scale=4.0)(
         _port_state(state, cfg), torch.from_numpy(img), ALPHA, **feed)
     np.testing.assert_allclose(float(scaled["L_D_r1"]), 4 * want["L_D_r1"], rtol=1e-5)
 
@@ -299,14 +306,15 @@ def test_lazy_window_cadence_matches_jax(sched, interval, cycles):
 
 
 def test_batch_stream_matches_data_pipeline():
-    """Batches of the port's iterator equal the JAX DataPipeline's, one
+    """Batches of the port's DataPipeline equal the JAX DataPipeline's, one
     rank, the same split and seed, with and without a fast-forward."""
     dataset = SyntheticDataset(20, scale_index=1)
     indices = np.arange(3, 20)
     for start in (0, 5):
-        port = BatchIterator(dataset, 4, indices=indices, seed=9, start_batch=start)
-        with DataPipeline(JaxSynthetic(20, scale_index=1), 4, indices=indices,
-                          num_workers=1, seed=9, start_batch=start) as pipe:
+        with PortPipeline(dataset, 4, indices=indices, num_workers=3, seed=9,
+                          start_batch=start) as port, \
+                DataPipeline(JaxSynthetic(20, scale_index=1), 4, indices=indices,
+                             num_workers=1, seed=9, start_batch=start) as pipe:
             for _ in range(6):                 # past one epoch (17 // 4 = 4)
                 want = next(pipe)
                 got = next(port)

@@ -1,0 +1,223 @@
+"""The port's trainer as a user runs it, on the CPU: `python -m
+pggan_tpu_torch.train` (in process) on a folder of images, the run
+directory it leaves (metrics.jsonl with the JAX trainer's keys, the sample
+grids, the config snapshot), SIGTERM mid-run and the exact resume,
+asynchronous checkpoints against in-place updates, which config keys count
+as set (against the JAX package's Config), and the model registry.
+
+Nothing here compiles a JAX program: the JAX side is its config, its
+metrics logger and its checkpoint reader.
+"""
+
+import glob
+import os
+import signal
+import threading
+
+import numpy as np
+import pytest
+import yaml
+from PIL import Image
+
+from pggan_tpu import Config as JaxConfig
+from pggan_tpu.utils import checkpoint as jax_ckpt
+from pggan_tpu.utils.logging import MetricLogger as JaxMetricLogger
+from pggan_tpu_torch import registry
+from pggan_tpu_torch import train as port_train
+from pggan_tpu_torch.config import Config
+from pggan_tpu_torch.ops.equalized import adam_state_to_jax, params_to_jax
+from pggan_tpu_torch.train.trainer import RNG_META_KEY, ProgressiveGANTrainer
+from pggan_tpu_torch.utils import checkpoint as port_ckpt
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOTAL, CUT = 8, 4          # steps of a run; SIGTERM after step CUT
+STEP_KEYS = {"L_D", "L_D_real", "L_D_fake", "L_D_r1", "L_G"}    # JAX's r1 step
+
+
+def _keys(save_root, image_root, **over):
+    """A tiny model on folder data: scale 0 (4×4) for 3 steps, then 8×8."""
+    return {"latent_dim": 16, "depths": [16, 8], "batch_per_gpu": 4,
+            "save_root": str(save_root), "data_backend": "folder",
+            "dataset_root_list": [str(image_root)], "num_data_workers": 2,
+            "loss_cycle": 2, "test_cycle": 4, "ckpt_cycle": 100,
+            "max_step_at_scale": [3, 100], "alpha_jump_start": [-1, 1],
+            "alpha_jump_interval": [0, 2], "alpha_jump_Ntimes": [0, 4], **over}
+
+
+@pytest.fixture(scope="module")
+def workdir(tmp_path_factory):
+    """A folder of 12 JPEG/PNG images in two directories, the YAML config
+    and an uninterrupted TOTAL-step run "full" through the entry point."""
+    root = tmp_path_factory.mktemp("host")
+    rs = np.random.RandomState(1)
+    for i in range(12):
+        sub = root / "images" / ("x" if i % 2 else "y/z")
+        os.makedirs(sub, exist_ok=True)
+        arr = rs.randint(0, 256, (rs.randint(16, 25), rs.randint(16, 25), 3), dtype=np.uint8)
+        Image.fromarray(arr).save(sub / f"{i}.{'jpg' if i % 3 else 'png'}")
+    config = root / "tiny.yaml"
+    config.write_text(yaml.safe_dump(_keys(root / "runs", root / "images")))
+    rc = port_train.main(["full", "--config", str(config), "--max_step", str(TOTAL),
+                          "--device", "cpu"])
+    assert rc == 0
+    return root, str(config)
+
+
+def _checkpoint(root, run, step):
+    """{net: (params, opt, meta)} of a run's checkpoint at `step`."""
+    return {name: port_ckpt.load_checkpoint(str(root / "runs"), run, name, step)
+            for name in ("G", "D")}
+
+
+def test_main_writes_the_run_directory(workdir):
+    root, config = workdir
+    run_dir = root / "runs" / "full"
+    lines = [yaml.safe_load(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    assert [line["step"] for line in lines] == list(range(0, TOTAL, 2))
+    theirs = JaxMetricLogger(str(root / "jax_log"), "j")
+    for line in lines:
+        theirs.log(line["step"], {k: v for k, v in line.items() if k not in ("step", "time")})
+    theirs.close()
+    jax_lines = [yaml.safe_load(line) for line in
+                 (root / "jax_log" / "j" / "metrics.jsonl").read_text().splitlines()]
+    for i, (line, jax_line) in enumerate(zip(lines, jax_lines)):
+        assert set(line) == set(jax_line)
+        want = {"step", "time"} | STEP_KEYS | ({"imgs_per_sec"} if i else set())
+        assert set(line) == want and all(np.isfinite(v) for v in line.values())
+    # the [real, fake] grid: 2 rows of 4 images, 2 px apart and around
+    for step, res in ((0, 4), (4, 8)):
+        grid = np.asarray(Image.open(run_dir / "imgs" / f"e{step}.jpg"))
+        assert grid.shape == (2 * (res + 4), 4 * (res + 2) + 2, 3)
+    assert sorted(os.listdir(run_dir / "imgs")) == ["e0.jpg", "e4.jpg"]
+    # the config snapshot: the YAML with the run's command-line keys
+    snapshot = Config.from_yaml(str(run_dir / "config_full.yaml"))
+    want = Config.from_yaml(config)
+    want.update(run_id="full", max_step=TOTAL)
+    assert dict(snapshot) == dict(want)
+    # checkpoints the JAX package reads, with the latent generator's state
+    params, opt, meta = jax_ckpt.load_checkpoint(str(root / "runs"), "full", "G", TOTAL)
+    assert meta["global_step"] == TOTAL and meta["schedule"]["scale_index"] == 1
+    assert "rng" not in meta and meta[RNG_META_KEY]["device"] == "cpu"
+    assert set(opt) == {"0/count"} | {f"0/{m}/{k}" for m in ("mu", "nu") for k in params}
+
+
+def test_sigterm_checkpoints_and_the_resume_is_exact(workdir, monkeypatch, capsys):
+    """SIGTERM after step CUT: a checkpoint at CUT + 1, a clean return and
+    the previous handler back; the resume for the remaining steps ends bit
+    for bit where the uninterrupted run ended (G, D, Adam, the latents'
+    generator)."""
+    root, config = workdir
+    assert threading.current_thread() is threading.main_thread()
+    step_once = ProgressiveGANTrainer.train_step
+
+    def train_step(self):
+        images = step_once(self)
+        if self.global_step == CUT:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return images
+    monkeypatch.setattr(ProgressiveGANTrainer, "train_step", train_step)
+    before = signal.getsignal(signal.SIGTERM)
+    rc = port_train.main(["cut", "--config", config, "--max_step", str(TOTAL),
+                          "--device", "cpu"])
+    assert rc == 0 and signal.getsignal(signal.SIGTERM) is before
+    assert f"interrupted at step {CUT + 1}" in capsys.readouterr().out
+    assert sorted(glob.glob(str(root / "runs" / "cut" / "ckpt" / "G_[0-9]*.npz"))) == [
+        str(root / "runs" / "cut" / "ckpt" / f"G_{CUT + 1}.npz")]
+
+    monkeypatch.setattr(ProgressiveGANTrainer, "train_step", step_once)
+    rc = port_train.main(["cut", "--config", config, "--ckpt_id", "cut", "--max_step",
+                          str(TOTAL), "--device", "cpu"])
+    assert rc == 0
+    assert f"checkpoint cut@{CUT + 1} restored" in capsys.readouterr().out
+    full, resumed = _checkpoint(root, "full", TOTAL), _checkpoint(root, "cut", TOTAL)
+    for name in ("G", "D"):
+        for want, got in zip(full[name][:2], resumed[name][:2]):
+            assert set(want) == set(got)
+            for key in want:
+                np.testing.assert_array_equal(got[key], want[key], err_msg=f"{name} {key}")
+        assert resumed[name][2][RNG_META_KEY] == full[name][2][RNG_META_KEY]
+        assert resumed[name][2]["schedule"] == full[name][2]["schedule"]
+
+
+def test_async_checkpoint_holds_the_state_at_its_step(workdir, monkeypatch):
+    """The writer is held until two more steps have updated the weights and
+    Adam's moments in place; the files still hold the state at the save."""
+    root, _ = workdir
+    cfg = Config(_keys(root / "async", root / "images", run_id="a"))
+    trainer = ProgressiveGANTrainer(cfg, device="cpu").setup()
+    try:
+        trainer.fit(max_step=2)
+        want = {net: (params_to_jax(m), adam_state_to_jax(o, m)) for net, m, o in
+                (("G", trainer.state.G, trainer.state.opt_G),
+                 ("D", trainer.state.D, trainer.state.opt_D))}
+        release, write = threading.Event(), port_ckpt.save_checkpoint
+
+        def held_write(*args, **kwargs):
+            assert release.wait(30)
+            return write(*args, **kwargs)
+        monkeypatch.setattr(port_ckpt, "save_checkpoint", held_write)
+        trainer.save_checkpoint(2)
+        for _ in range(2):
+            trainer.train_step()
+        moved = params_to_jax(trainer.state.G)
+        release.set()
+        trainer.save_checkpoint(4, wait=True)
+    finally:
+        trainer.close()
+    assert any(not np.array_equal(moved[k], want["G"][0][k]) for k in moved)
+    for name, (params, opt) in want.items():
+        saved_params, saved_opt, meta = port_ckpt.load_checkpoint(
+            str(root / "async"), "a", name, 2)
+        assert meta["global_step"] == 2
+        for mine, theirs in ((saved_params, params), (saved_opt, opt)):
+            for key in theirs:
+                np.testing.assert_array_equal(mine[key], theirs[key], err_msg=key)
+
+
+def test_failed_checkpoint_write_raises_at_the_next_save(workdir, monkeypatch):
+    root, _ = workdir
+    cfg = Config(_keys(root / "fail", root / "images", run_id="f"))
+    trainer = ProgressiveGANTrainer(cfg, device="cpu").setup()
+
+    def broken(*args, **kwargs):
+        raise OSError("disk full")
+    monkeypatch.setattr(port_ckpt, "save_checkpoint", broken)
+    try:
+        trainer.save_checkpoint(0)
+        with pytest.raises(OSError, match="disk full"):
+            trainer.save_checkpoint(0)
+    finally:
+        trainer.close()
+
+
+CONFIG_FILES = ["configs.yaml"] + sorted(
+    os.path.join("configs", f) for f in os.listdir(os.path.join(REPO, "configs"))
+    if f.endswith(".yaml"))
+
+
+@pytest.mark.parametrize("name", CONFIG_FILES)
+def test_config_keys_set_by_the_user_match_jax(name, tmp_path):
+    """Both packages load the file to the same values and count the same
+    keys as set; `save_yaml` writes a snapshot that reloads to them."""
+    path = os.path.join(REPO, name)
+    ours, theirs = Config.from_yaml(path), JaxConfig.from_yaml(path)
+    assert ours.explicit_keys() == theirs.explicit_keys()
+    assert dict(ours) == theirs.to_dict()
+    ours.update(run_id="snap", save_root=str(tmp_path))
+    snapshot = ours.save_yaml()
+    assert snapshot == os.path.join(str(tmp_path), "snap", "config_snap.yaml")
+    assert dict(Config.from_yaml(snapshot)) == dict(ours)
+    assert JaxConfig.from_yaml(snapshot).to_dict() == dict(ours)
+
+
+def test_registry_dispatches_pggan(tmp_path):
+    keys = {"latent_dim": 16, "depths": [16, 8], "batch_per_gpu": 4,
+            "save_root": str(tmp_path), "synthetic_dataset_size": 8, "num_data_workers": 1}
+    trainer = registry.create_model(Config(keys), device="cpu")
+    try:
+        assert isinstance(trainer, ProgressiveGANTrainer) and trainer.state is not None
+        assert next(trainer._pipeline).shape == (4, 4, 4, 3)
+    finally:
+        trainer.close()
+    with pytest.raises(KeyError, match="stylegan"):
+        registry.create_model(Config(dict(keys, model_id="stylegan")), device="cpu")
