@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's sampling, training and ops paths once on one CUDA card.
+"""Drive the PyTorch port's sampling, training, ops and evaluation paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -47,10 +47,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   9. one f32 step (TF32 off, cuDNN's deterministic algorithms, D's
      learning rate 0) at full width with the kernels against the same step
      with the plain versions, from the same state, on several draws of the
-     batch and latents: losses and Adam's first moments (= the gradients,
-     β1 = 0); the kernel path run twice agrees bit for bit;
- 10. times on the card: the R1 step and the step without R1, each in bf16,
-     f32 with TF32 off and f32 with TF32 on; peak memory; the train path's
+     batch and latents, r1 and wgangp: losses and Adam's first moments (=
+     the gradients, β1 = 0); the kernel path run twice agrees bit for bit;
+     on each r1 draw, the leaky-ReLU inputs that fall on the other side of 0
+     on the other path, counted by call;
+ 10. times on the card: the R1 step, the step without R1 and the wgangp
+     step, each in bf16, f32 with TF32 off and f32 with TF32 on; peak
+     memory; the train path's
      kernels against their plain versions (call and device time; the
      backward at the three largest epilogue shapes beside its bound, the
      minibatch-stddev call beside pixel_norm's at the same shape);
@@ -73,7 +76,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      returns cleanly, and the resume's first batch equals, byte for byte,
      the uninterrupted run's at that step; the rates: the pipeline alone
      (8 worker threads and 1), the trainer's imgs_per_sec on folder and on
-     synthetic data, and whether the host keeps up with the bf16 step.
+     synthetic data, and whether the host keeps up with the bf16 step;
+ 13. validation, FID and KID on the training path through
+     `pggan_tpu_torch.train.main`: phase 8's checkpoint resumed at full width
+     with configs/config_demo256_fid.yaml's evaluation keys (bf16 r1 steps,
+     G EMA, 2 validation batches, 256 FID samples, the fixed-seed
+     InceptionV3), from 96 JPEGs, validation and FID on cycles cut to a few
+     steps; checks the val_* and fid/kid/kid_std records, the launches per
+     validation batch and per FID fake batch, the fakes' dtype, FID of the
+     reals against themselves against that of the fakes, and
+     `pggan_tpu_torch.eval_metrics` on the last checkpoint against the
+     in-run metrics; the extractors on the card against the CPU; the times
+     of validation(), of the parts of an FID/KID call and of the steps with
+     the hooks on and off.
 
 The second-to-last lines are a JSON object describing the kernels and the
 card's name and power limit; the last line is
@@ -131,6 +146,31 @@ STEP_LAUNCHES = {"pixel_norm": 4, "lrelu_pixel_norm": 26, "lrelu_pixel_norm_bwd"
 FOLDER_IMAGES, FOLDER_SIDE = 48, 320
 FOLDER_STEPS, SIGTERM_AFTER = 8, 2
 PIPELINE_BATCHES = 24
+# Phase 13: validation, FID and KID on the training path with the
+# evaluation keys of EVAL_CONFIG (the repo's full-width 256² recipe), from
+# a folder of EVAL_IMAGES JPEGs: the 30 % valid split (29 images) holds more
+# than one FID batch of 16. The run resumes phase 8's checkpoint for at
+# least EVAL_STEPS steps and ends one step after an FID step, so its final
+# checkpoint holds the state that FID step measured; validation every
+# EVAL_TEST_CYCLE steps and FID every EVAL_FID_CYCLE (cut from 4000 each).
+EVAL_CONFIG = os.path.join("configs", "config_demo256_fid.yaml")
+EVAL_KEYS = ("compute_dtype", "loss_mode", "g_ema_decay", "use_validation", "val_batches",
+             "fid_samples", "fid_extractor", "fid_weights")
+EVAL_IMAGES, EVAL_STEPS, EVAL_TEST_CYCLE, EVAL_FID_CYCLE = 96, 6, 2, 3
+# Launches of one validation batch (G's forward, D on reals and on fakes,
+# no backward) and of one FID fake batch (G's forward).
+VAL_LAUNCHES = {"pixel_norm": 2, "lrelu_pixel_norm": 13, "lrelu_pixel_norm_bwd": 0,
+                "minibatch_stddev_stat": 2, "bias_lrelu_gain": 0}
+FAKE_LAUNCHES = dict(VAL_LAUNCHES, minibatch_stddev_stat=0)
+# The extractors on the card against the CPU, f32 with TF32 off, the same
+# weights: cuDNN and the CPU sum in other orders through InceptionV3's 94
+# convolutions (the JAX package's torch-mirror test allows rtol = atol = 2e-3): max
+# |diff| over the largest feature. The offline entry point recomputes the
+# in-run metrics from the checkpoint of the same state in the same process:
+# the same features up to the convolution algorithms cuDNN picks.
+INCEPTION_CARD_TOL, RANDOM_CONV_CARD_TOL = 1e-3, 1e-4
+EVAL_METRICS_FID_RTOL, EVAL_METRICS_KID_ATOL = 1e-4, 1e-5
+
 # One f32 step (TF32 off), kernel path vs plain path (phase 9): bounds on
 # the relative loss difference and on the gradient difference relative to
 # the largest gradient of each network. cuDNN's default backward algorithms
@@ -147,6 +187,13 @@ PIPELINE_BATCHES = 24
 # 2.1e-7, D up to 5.0e-4 and G up to 2.2e-4, but 1.3e-3 on (0, 5508).
 STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-5, 2e-3
 STEP_DRAWS = ((0, 0), (1, 0), (2, 0), (0, 5508))
+# Phase 9 also holds the wgangp recipe's step (configs/config_demo64_wgangp.yaml's
+# loss: BCE, the gradient penalty on eps-interpolates and drift) on one draw,
+# to the same bounds. On every r1 draw it counts the leaky-ReLU inputs that
+# fall on the other side of 0 on the other path (a G epilogue's input, G's
+# format layer's, D's layers'): inputs within rounding of 0 that take the
+# other slope.
+WGANGP_DRAWS = ((0, 0),)
 # Phase 11: the ragged shapes of phase 3, bias_lrelu_gain's (slope, gain)
 # pairs, the filtered_lrelu shapes (the two top blocks of the 256² model at
 # batch 16) and bias_act's activations.
@@ -805,10 +852,48 @@ def train_state(step_mod, cfg, arrays_g, arrays_d):
     return step_mod.init_train_state(cfg, G, D, torch.Generator(device=DEVICE).manual_seed(0))
 
 
-def step_runs(step_mod, kernels, equalized, cfg, arrays_g, arrays_d, gen, labels):
+@contextlib.contextmanager
+def recording_lrelu_signs(kernels, signs):
+    """Append to `signs`, call by call, (site, shape, x >= 0) for the input
+    of every leaky ReLU of G and D: G's epilogues (whichever version of
+    `kernels.lrelu_pixel_norm` is in place), G's format layer and D's
+    layers (the models' `leaky_relu`)."""
+    from pggan_tpu_torch.models import discriminator as d_mod, generator as g_mod
+
+    def recording(site, fn):
+        def call(x, *args, **kwargs):
+            signs.append((site, tuple(x.shape), x.detach() >= 0))
+            return fn(x, *args, **kwargs)
+        return call
+    with mock.patch.object(kernels, "lrelu_pixel_norm",
+                           recording("G epilogue", kernels.lrelu_pixel_norm)), \
+            mock.patch.object(g_mod, "leaky_relu", recording("G format", g_mod.leaky_relu)), \
+            mock.patch.object(d_mod, "leaky_relu", recording("D", d_mod.leaky_relu)):
+        yield
+
+
+def sign_flips(signs_a, signs_b):
+    """[(call index, site, shape, inputs whose side of 0 differs)] for the
+    calls with any, between two runs that made the same leaky-ReLU calls in
+    the same order. The calls of an r1 step come in the order G(z1), D on
+    the reals, D on its fakes, G(z2), D on G(z2)'s fakes (the G phase)."""
+    check(len(signs_a) == len(signs_b), f"{len(signs_a)} vs {len(signs_b)} leaky-ReLU calls")
+    flips = []
+    for i, ((site, shape, a), (site_b, shape_b, b)) in enumerate(zip(signs_a, signs_b)):
+        check((site, shape) == (site_b, shape_b), f"leaky-ReLU call {site} {shape} vs "
+                                                  f"{site_b} {shape_b}")
+        n = int((a != b).sum())
+        if n:
+            flips.append((i, site, list(shape), n))
+    return flips
+
+
+def step_runs(step_mod, kernels, equalized, cfg, arrays_g, arrays_d, gen, labels,
+              signs=None):
     """One step for each label of labels ("kernel", "plain", "kernel
     again"), each from the same state, batch and latents (drawn from gen).
-    Returns {label: (losses, {net: Adam state in the JAX layout})}."""
+    Returns {label: (losses, {net: Adam state in the JAX layout})}. With a
+    dict `signs`, each label's leaky-ReLU input signs go to signs[label]."""
     batch = torch.randint(0, 256, (BATCH, RES, RES, 3), generator=gen, device=DEVICE,
                           dtype=torch.uint8)
     z1 = torch.randn((BATCH, int(cfg.latent_dim)), generator=gen, device=DEVICE)
@@ -817,7 +902,11 @@ def step_runs(step_mod, kernels, equalized, cfg, arrays_g, arrays_d, gen, labels
     runs = {}
     for label in labels:
         state = train_state(step_mod, cfg, arrays_g, arrays_d)
-        with plain_kernels(kernels) if label == "plain" else contextlib.nullcontext():
+        recorder = (recording_lrelu_signs(kernels, signs.setdefault(label, []))
+                    if signs is not None and label in ("kernel", "plain")
+                    else contextlib.nullcontext())
+        with plain_kernels(kernels) if label == "plain" else contextlib.nullcontext(), \
+                recorder:
             metrics, _ = step(state, batch, ALPHA, z1=z1, z2=z2)
         runs[label] = ({k: float(v) for k, v in metrics.items()},
                        {n: equalized.adam_state_to_jax(o, net) for n, net, o in
@@ -845,23 +934,40 @@ def step_difference(runs, a, b):
 def compare_step(step_mod, kernels, equalized, cfg, arrays_g, arrays_d):
     """Phase 9: one f32 step (TF32 off, cuDNN's deterministic algorithms, D's
     learning rate 0) with the kernels and one with the plain versions, from
-    the same state, batch and latents, for each of STEP_DRAWS; on the first
-    the kernel path once more."""
+    the same state, batch and latents, for each of STEP_DRAWS (r1, counting
+    the leaky-ReLU inputs that change side) and WGANGP_DRAWS (wgangp); on
+    the first the kernel path once more."""
     cfg = copy.deepcopy(cfg)
     cfg["lr_D"] = 0.0
+    wgangp_cfg = copy.deepcopy(cfg)
+    wgangp_cfg["loss_mode"] = "wgangp"
     worst = {}
     torch.backends.cudnn.deterministic = True
     try:
-        for i, (seed, offset) in enumerate(STEP_DRAWS):
+        draws = ([(cfg, d) for d in STEP_DRAWS] + [(wgangp_cfg, d) for d in WGANGP_DRAWS])
+        for i, (run_cfg, (seed, offset)) in enumerate(draws):
             gen = torch.Generator(device=DEVICE).manual_seed(seed)
             if offset:
                 gen.set_offset(offset)
             labels = ("kernel", "plain", "kernel again") if i == 0 else ("kernel", "plain")
-            runs = step_runs(step_mod, kernels, equalized, cfg, arrays_g, arrays_d, gen,
-                             labels)
-            print(f"[9 step] f32 TF32 off, {RES}x{RES} batch {BATCH}, draw (seed {seed}, "
-                  f"offset {offset}): kernel path losses "
+            signs = {} if run_cfg is cfg else None
+            runs = step_runs(step_mod, kernels, equalized, run_cfg, arrays_g, arrays_d, gen,
+                             labels, signs)
+            print(f"[9 step] f32 TF32 off, {RES}x{RES} batch {BATCH}, {run_cfg.loss_mode}, "
+                  f"draw (seed {seed}, offset {offset}): kernel path losses "
                   f"{ {k: round(v, 6) for k, v in runs['kernel'][0].items()} }")
+            if signs is not None:
+                flips = sign_flips(signs["kernel"], signs["plain"])
+                sites = [site for site, _, _ in signs["kernel"]]
+                del signs
+                # where G's calls and D's take turns: G(z1), D on the reals and
+                # on its fakes, G(z2), D on G(z2)'s fakes
+                turns = [i for i, site in enumerate(sites) if i == 0 or (
+                    site.startswith("G") != sites[i - 1].startswith("G"))]
+                print(f"[9 step]   leaky-ReLU inputs on the other side of 0, kernel vs "
+                      f"plain path: {sum(n for *_, n in flips)} over {len(sites)} calls "
+                      f"(G and D take turns at calls {turns}); (call, site, shape, count) "
+                      f"where any: {flips}")
             for a, b in (("kernel", "plain"), ("kernel again", "kernel"))[:len(labels) - 1]:
                 loss, grads = step_difference(runs, a, b)
                 seen = worst.get(a, (0.0, 0.0))
@@ -877,15 +983,16 @@ def compare_step(step_mod, kernels, equalized, cfg, arrays_g, arrays_d):
           f"the kernel path twice differs: {worst['kernel again']}")
     check(loss_rel <= STEP_LOSS_RTOL, f"loss difference {loss_rel:.3g}")
     check(grad_rel <= STEP_GRAD_RTOL, f"gradient difference {grad_rel:.3g}")
-    print(f"[9 step] over {len(STEP_DRAWS)} draws, kernel vs plain: losses {loss_rel:.3g} "
+    print(f"[9 step] over {len(STEP_DRAWS)} r1 draws and {len(WGANGP_DRAWS)} wgangp, kernel "
+          f"vs plain: losses {loss_rel:.3g} "
           f"(rtol {STEP_LOSS_RTOL}), gradients {grad_rel:.3g} of the largest gradient of "
           f"each network ({STEP_GRAD_RTOL}); the kernel path twice bit for bit")
 
 
 def time_train(step_mod, kernels, cfg, arrays_g, arrays_d, gen, card):
-    """Phase 10a: step ms, img/s and peak memory of the R1 step and of the
-    step without R1, in bf16, f32 with TF32 off and f32 with TF32 on.
-    Returns the bf16 step ms {R1: ms} (R1 True and False)."""
+    """Phase 10a: step ms, img/s and peak memory of the R1 step, the step
+    without R1 and the wgangp step, in bf16, f32 with TF32 off and f32 with
+    TF32 on. Returns the bf16 step ms {R1: ms} (R1 True, False, "wgangp")."""
     bf16_ms = {}
     batch = torch.randint(0, 256, (BATCH, RES, RES, 3), generator=gen, device=DEVICE,
                           dtype=torch.uint8)
@@ -897,8 +1004,11 @@ def time_train(step_mod, kernels, cfg, arrays_g, arrays_d, gen, card):
         torch.backends.cudnn.allow_tf32 = tf32
         torch.backends.cuda.matmul.allow_tf32 = tf32
         state = train_state(step_mod, run_cfg, arrays_g, arrays_d)
-        for r1 in (True, False):
-            step = step_mod.make_train_step(run_cfg, SCALE, include_r1=r1)
+        wgangp_cfg = copy.deepcopy(run_cfg)
+        wgangp_cfg["loss_mode"] = "wgangp"
+        for r1 in (True, False, "wgangp"):
+            step = (step_mod.make_train_step(wgangp_cfg, SCALE) if r1 == "wgangp" else
+                    step_mod.make_train_step(run_cfg, SCALE, include_r1=r1))
             for _ in range(2):
                 step(state, batch, ALPHA)
             torch.cuda.synchronize()
@@ -912,8 +1022,9 @@ def time_train(step_mod, kernels, cfg, arrays_g, arrays_d, gen, card):
             if label == "bf16":
                 bf16_ms[r1] = ms
             peak = torch.cuda.max_memory_allocated() / 2 ** 20
-            print(f"[10 times] train step {RES}x{RES} batch {BATCH} {label}, "
-                  f"{'R1' if r1 else 'no R1 (lazy-window tail)'}: {ms:.2f} ms = "
+            kind = {True: "R1", False: "no R1 (lazy-window tail)",
+                    "wgangp": "wgangp (GP + drift)"}[r1]
+            print(f"[10 times] train step {RES}x{RES} batch {BATCH} {label}, {kind}: {ms:.2f} ms = "
                   f"{BATCH / ms * 1e3:.1f} img/s; peak memory {peak:.0f} MiB "
                   f"(host clock over {n} steps after 2 warm-up) ({card})")
     torch.backends.cudnn.allow_tf32 = False
@@ -1200,13 +1311,13 @@ def time_ops(kernels, ops, gen, card):
 
 # ---- phase 12: training from a folder of images ----------------------------
 
-def write_image_folder(root):
-    """FOLDER_IMAGES JPEGs of FOLDER_SIDE² in two subdirectories, one level
-    down each (so the glob recurses), from a numpy seed: a smooth colour
-    field plus noise, so the decode and the resize to 256² do real work."""
+def write_image_folder(root, count=FOLDER_IMAGES, seed=2024):
+    """`count` JPEGs of FOLDER_SIDE² in two subdirectories, one level down
+    each (so the glob recurses), from a numpy seed: a smooth colour field
+    plus noise, so the decode and the resize to 256² do real work."""
     from PIL import Image
-    rs = np.random.RandomState(2024)
-    for i in range(FOLDER_IMAGES):
+    rs = np.random.RandomState(seed)
+    for i in range(count):
         sub = os.path.join(root, f"part{i % 2}", "faces")
         os.makedirs(sub, exist_ok=True)
         low = Image.fromarray(rs.randint(0, 256, (10, 10, 3), dtype=np.uint8)).resize(
@@ -1408,6 +1519,301 @@ def run_folder_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card, bf16_
     print(f"[12 folder] phase 12 took {time.perf_counter() - t_phase:.2f} s")
 
 
+# ---- phase 13: validation, FID and KID on the training path -----------------
+
+def launch_delta(kernels, before):
+    return {k: kernels.launches[k] - before[k] for k in kernels.launches}
+
+
+def check_extractors_on_card(fid_mod, inception_mod, card):
+    """InceptionV3 (4 images at 299²) and RandomConvFeatures (4 at 256²)
+    on the card against the CPU with the same fixed-seed weights, f32 with
+    TF32 off (checked) and on (printed)."""
+    rs = np.random.RandomState(13)
+    for name, build, side, tol in (
+            ("InceptionV3Features", lambda d: inception_mod.InceptionV3Features(device=d),
+             299, INCEPTION_CARD_TOL),
+            ("RandomConvFeatures", lambda d: fid_mod.RandomConvFeatures(feature_dim=256,
+                                                                        device=d),
+             RES, RANDOM_CONV_CARD_TOL)):
+        x = torch.from_numpy(rs.uniform(-1, 1, (4, side, side, 3)).astype(np.float32))
+        with torch.inference_mode():
+            want = build("cpu")(x)
+            net = build(DEVICE)
+            got = net(x.to(DEVICE)).cpu()
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = net(x.to(DEVICE)).cpu()
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+                torch.backends.cuda.matmul.allow_tf32 = False
+        scale = float(want.abs().max())
+        err, err_tf32 = (float((y - want).abs().max()) for y in (got, tf32))
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()), f"{name} features")
+        check(err <= tol * scale, f"{name} on the card vs the CPU: max |diff| {err:.3g} of "
+                                  f"{scale:.3g}")
+        print(f"[13 card] {name} [4,{side},{side},3] → {list(got.shape)} f32, card vs CPU: max "
+              f"|diff| {err:.3g} TF32 off (bound {tol} x the largest feature {scale:.3g}), "
+              f"{err_tf32:.3g} with TF32 on (not bounded) ({card})")
+
+
+def run_eval_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card):
+    """Phase 13: validation, FID and KID through `pggan_tpu_torch.train.main`
+    at full width, then `pggan_tpu_torch.eval_metrics` on its checkpoint, the
+    extractors on the card against the CPU, and the times."""
+    from pggan_tpu_torch import eval_metrics
+    from pggan_tpu_torch.config import Config
+    from pggan_tpu_torch.metrics import fid as fid_mod, inception as inception_mod
+    from pggan_tpu_torch.train import trainer as trainer_mod
+
+    t_phase = time.perf_counter()
+    recipe = Config.from_yaml(os.path.join(REPO, EVAL_CONFIG))
+    check([int(d) for d in recipe.depths] == depths and recipe.latent_dim == cfg.latent_dim,
+          f"{EVAL_CONFIG} is not phase 8's model: {recipe.latent_dim}, {recipe.depths}")
+    keys = {k: recipe[k] for k in EVAL_KEYS}
+    check(keys["use_validation"] and keys["fid_extractor"] == "inception"
+          and keys["fid_weights"] is None, f"{EVAL_CONFIG}: {keys}")
+    _, _, _, start = train_checkpoint(ckpt_lib, cfg, depths, tmp)
+    images = os.path.join(tmp, "eval_images")
+    write_image_folder(images, EVAL_IMAGES, seed=2025)
+    end = start + EVAL_STEPS
+    while (end - 1) % EVAL_FID_CYCLE:
+        end += 1
+    run_keys = dict(keys, save_root=tmp, data_backend="folder", dataset_root_list=[images],
+                    batch_per_gpu=BATCH, num_data_workers=8, prefetch_depth=2, loss_cycle=2,
+                    test_cycle=EVAL_TEST_CYCLE, fid_cycle=EVAL_FID_CYCLE, ckpt_cycle=10000)
+    configs = {}
+    for name, over in (("eval", {}), ("noeval", {"use_validation": False, "fid_cycle": 0})):
+        configs[name] = os.path.join(tmp, f"{name}.yaml")
+        with open(configs[name], "w") as f:             # JSON is YAML
+            json.dump(dict(run_keys, **over), f)
+
+    val_launches, fake_launches, fake_meta = [], [], []
+    times = collections.defaultdict(list)
+    seen = {}
+    forward, fakes, scores = (trainer_mod.eval_losses,
+                              trainer_mod.ProgressiveGANTrainer.fid_fakes,
+                              trainer_mod.generative_scores)
+    fit = trainer_mod.ProgressiveGANTrainer.fit
+
+    def counted_forward(*args, **kwargs):
+        before = dict(kernels.launches)
+        out = forward(*args, **kwargs)
+        val_launches.append(launch_delta(kernels, before))
+        return out
+
+    def counted_fakes(self, n, batch):
+        it = fakes(self, n, batch)
+        while True:
+            before = dict(kernels.launches)
+            try:
+                fake = next(it)
+            except StopIteration:
+                return
+            fake_launches.append(launch_delta(kernels, before))
+            fake_meta.append((fake.dtype, tuple(fake.shape), fake.device.type,
+                              float(fake.min()), float(fake.max())))
+            yield fake
+
+    def recorded_scores(f_real, f_fake):
+        seen["features"] = (f_real, f_fake)
+        return scores(f_real, f_fake)
+
+    def timed(name, fn):
+        def call(self, *args, **kwargs):
+            seen["trainer"] = self
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def timed_methods(suffix, names):
+        return [mock.patch.object(trainer_mod.ProgressiveGANTrainer, name, timed(
+            name + suffix, getattr(trainer_mod.ProgressiveGANTrainer, name))) for name in names]
+
+    patches = [mock.patch.object(trainer_mod, "eval_losses", counted_forward),
+               mock.patch.object(trainer_mod.ProgressiveGANTrainer, "fid_fakes", counted_fakes),
+               mock.patch.object(trainer_mod, "generative_scores", recorded_scores)]
+    patches += timed_methods("", ("fit", "save_checkpoint", "validation",
+                                  "compute_generative_metrics"))
+
+    def argv(run):
+        return [run, "--config", configs[run], "--ckpt_id", "smoke_init", "--max_step",
+                str(end), "--device", DEVICE]
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        rc, batches, run_cfg, lines, launches, seconds = folder_run(train_mod, kernels,
+                                                                    argv("eval"))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    for line in lines:
+        print(f"[13 eval]   {line}")
+    check(rc == 0, f"train main returned {rc}")
+    check(run_cfg["compute_dtype"] == "bfloat16" and run_cfg["g_ema_decay"] == 0.999
+          and run_cfg["fid_samples"] == keys["fid_samples"], f"the run's config {run_cfg}")
+    trainer = seen["trainer"]
+    steps = end - start
+    check(len(batches) == steps + len(val_launches), f"{len(batches)} batches")
+
+    # metrics.jsonl: val_* at the test_cycle steps, fid/kid/kid_std at the fid_cycle steps
+    with open(os.path.join(tmp, "eval", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    val = [r for r in records if "val_L_D" in r]
+    scored = [r for r in records if "fid" in r]
+    val_steps = [s for s in range(start, end) if s % EVAL_TEST_CYCLE == 0]
+    fid_steps = [s for s in range(start, end) if s % EVAL_FID_CYCLE == 0]
+    check([r["step"] for r in val] == val_steps and len(val_steps) >= 2,
+          f"validation at {[r['step'] for r in val]}, expected {val_steps}")
+    check([r["step"] for r in scored] == fid_steps and len(fid_steps) >= 2
+          and fid_steps[-1] == end - 1, f"FID at {[r['step'] for r in scored]}, expected "
+                                        f"{fid_steps}")
+    val_keys = ("val_D_real", "val_D_fake", "val_L_D", "val_L_G", "valid_D_real")
+    for r in val:
+        check(all(np.isfinite(r[k]) for k in val_keys) and r["val_L_D"] > 0
+              and r["val_L_G"] > 0, f"validation record {r}")
+    for r in scored:
+        check(all(np.isfinite(r[k]) for k in ("fid", "kid", "kid_std")) and r["fid"] >= 0,
+              f"FID record {r}")
+
+    # launches: per validation batch, per FID fake batch, and the whole run
+    n_fake = -(-int(keys["fid_samples"]) // trainer.fid_batch_size(int(keys["fid_samples"])))
+    check(len(val_launches) == len(val) * int(keys["val_batches"])
+          and all(d == VAL_LAUNCHES for d in val_launches),
+          f"validation batch launches {val_launches}, expected {VAL_LAUNCHES} each")
+    check(len(fake_launches) == len(scored) * n_fake
+          and all(d == FAKE_LAUNCHES for d in fake_launches),
+          f"FID fake batch launches {fake_launches[:3]}..., expected {FAKE_LAUNCHES} each")
+    want = {k: steps * STEP_LAUNCHES[k] + len(val_launches) * VAL_LAUNCHES[k]
+            + len(fake_launches) * FAKE_LAUNCHES[k] for k in STEP_LAUNCHES}
+    check(launches == want, f"launches of the run {launches}, expected {want}")
+    for dtype, shape, device, low, high in fake_meta:
+        check(dtype == torch.float32 and shape == (BATCH, RES, RES, 3)
+              and device == torch.device(DEVICE).type and -1.0 <= low <= high <= 1.0,
+              f"FID fake batch {dtype} {shape} {device} [{low}, {high}]")
+
+    # the features the last FID step saw: FID of the reals against themselves
+    f_real, f_fake = seen["features"]
+    n_real = min(len(trainer._valid_indices), int(keys["fid_samples"]))
+    check(f_real.shape == (n_real, inception_mod.FEATURE_DIM)
+          and f_fake.shape == (int(keys["fid_samples"]), inception_mod.FEATURE_DIM),
+          f"feature shapes {f_real.shape} {f_fake.shape}")
+    mu, sigma = f_real.mean(0), np.cov(f_real, rowvar=False)
+    fid_self = fid_mod.frechet_distance(mu, sigma, mu, sigma)
+    fid_last = scored[-1]["fid"]
+    check(fid_self < 1e-2 * fid_last, f"FID of the reals against themselves {fid_self:.4g} "
+                                      f"is not far below against the fakes {fid_last:.4g}")
+    print(f"[13 eval] pggan_tpu_torch.train.main resumed the scale-{SCALE} checkpoint at step "
+          f"{start} with {EVAL_CONFIG}'s evaluation keys {keys} and ran {steps} r1 steps at "
+          f"{RES}x{RES}, batch {BATCH}, from {EVAL_IMAGES} JPEGs ({len(trainer._valid_indices)} "
+          f"in the valid split), in {seconds:.2f} s; validation at {val_steps}, FID/KID at "
+          f"{fid_steps}")
+    for r in val:
+        print(f"[13 eval]   step {r['step']}: " + ", ".join(f"{k} {r[k]:.5g}" for k in val_keys))
+    for r in scored:
+        print(f"[13 eval]   step {r['step']}: fid {r['fid']:.6g}, kid {r['kid']:.6g}, kid_std "
+              f"{r['kid_std']:.6g}")
+    print(f"[13 eval] launches: each of {len(val_launches)} validation batches {VAL_LAUNCHES}; "
+          f"each of {len(fake_launches)} FID fake batches {FAKE_LAUNCHES}; the run {launches} = "
+          f"{steps} steps x phase 8's + those; fakes f32 [{BATCH},{RES},{RES},3] in [-1, 1] on "
+          f"the card; FID of the {n_real} reals against themselves {fid_self:.4g}, against "
+          f"the {len(f_fake)} fakes {fid_last:.6g}")
+
+    # the offline entry point on the run's last checkpoint
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = eval_metrics.main(["--ckpt_id", "eval", "--save_root", tmp, "--device", DEVICE])
+    check(rc == 0, f"eval_metrics returned {rc}")
+    offline = json.loads(out.getvalue().strip().splitlines()[-1])
+    check(offline["step"] == end and offline["ema"] and offline["extractor"] == "inception",
+          f"eval_metrics {offline}")
+    in_run = scored[-1]
+    d_fid = abs(offline["fid"] - in_run["fid"])
+    d_kid = max(abs(offline[k] - in_run[k]) for k in ("kid", "kid_std"))
+    check(d_fid <= EVAL_METRICS_FID_RTOL * in_run["fid"] and d_kid <= EVAL_METRICS_KID_ATOL,
+          f"eval_metrics {offline} vs the run's step {end - 1} {in_run}")
+    print(f"[13 eval_metrics] python -m pggan_tpu_torch.eval_metrics on checkpoint {end}: "
+          f"{json.dumps(offline)}; against the run's step {end - 1}: |dfid| {d_fid:.3g} "
+          f"(bound {EVAL_METRICS_FID_RTOL} x fid), |dkid|, |dkid_std| {d_kid:.3g} (bound "
+          f"{EVAL_METRICS_KID_ATOL})")
+
+    # the parts of one compute_generative_metrics call, on the run's trainer
+    n = int(keys["fid_samples"])
+    batch = trainer.fid_batch_size(n)
+    t0 = time.perf_counter()
+    reals = list(trainer.fid_reals(n, batch))
+    t_load = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fake_list = list(fakes(trainer, n, batch))
+    torch.cuda.synchronize()
+    t_sample = time.perf_counter() - t0
+    peak_sample = torch.cuda.max_memory_allocated() / 2 ** 20
+    extractor = trainer._fid_extractor()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    f_r = fid_mod.compute_activations(reals, extractor, max_samples=n)
+    f_f = fid_mod.compute_activations(fake_list, extractor, max_samples=n)
+    t_extract = time.perf_counter() - t0
+    peak_extract = torch.cuda.max_memory_allocated() / 2 ** 20
+    again = max(float(np.abs(a - b).max()) for a, b in ((f_r, f_real), (f_f, f_fake)))
+    t0 = time.perf_counter()
+    stats = [(f.mean(0), np.cov(f, rowvar=False)) for f in (f_r, f_f)]
+    t_cov = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fid_value = fid_mod.frechet_distance(*stats[0], *stats[1])
+    t_eig = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer_mod.kid_between_features(f_r, f_f)
+    t_kid = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inception_mod.InceptionV3Features(device=DEVICE)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_img = len(f_r) + len(f_f)
+    print(f"[13 times] card: {card}")
+    print(f"[13 times] validation(): {[round(t * 1e3, 2) for t in times['validation']]} ms a "
+          f"call ({keys['val_batches']} batches of {BATCH}, bf16, host clock with a sync)")
+    print(f"[13 times] compute_generative_metrics(): "
+          f"{[round(t * 1e3, 1) for t in times['compute_generative_metrics']]} ms a call (the "
+          f"first builds InceptionV3: {t_build * 1e3:.1f} ms alone); its parts, one call "
+          f"({n_real} reals, {n} fakes): loading the reals {t_load * 1e3:.1f} ms; sampling the "
+          f"fakes (f32) {t_sample * 1e3:.1f} ms = {n / t_sample:.1f} img/s; InceptionV3 features "
+          f"{t_extract * 1e3:.1f} ms = {n_img / t_extract:.1f} img/s at 299x299 (f32, TF32 "
+          f"off); host statistics: np.cov {t_cov * 1e3:.1f} ms, frechet_distance (eigvals of "
+          f"a 2048x2048 float64 product) {t_eig * 1e3:.1f} ms, KID {t_kid * 1e3:.1f} ms; fid "
+          f"{fid_value:.6g}; features max |diff| from the run's last FID step {again:.3g}; "
+          f"peak memory {peak_sample:.0f} MiB sampling (the {n} fakes kept), {peak_extract:.0f} "
+          f"MiB extracting, from {base:.0f} MiB allocated before")
+
+    # the same steps without the hooks: fit() less its checkpoint write, so
+    # the steps with the hooks and without
+    with contextlib.ExitStack() as stack:
+        for patch in timed_methods("_noeval", ("fit", "save_checkpoint")):
+            stack.enter_context(patch)
+        rc, _, _, _, _, _ = folder_run(train_mod, kernels, argv("noeval"))
+    check(rc == 0, f"the run without hooks returned {rc}")
+    hooks_s = sum(times["validation"]) + sum(times["compute_generative_metrics"])
+    on_s, off_s = (times["fit" + k][-1] - sum(times["save_checkpoint" + k])
+                   for k in ("", "_noeval"))
+    print(f"[13 times] {steps} bf16 r1 steps through fit() from the folder, its final "
+          f"checkpoint write left out ({sum(times['save_checkpoint']):.2f} / "
+          f"{sum(times['save_checkpoint_noeval']):.2f} s): hooks on {on_s:.2f} s = "
+          f"{steps * BATCH / on_s:.2f} img/s, of which the hooks {hooks_s:.2f} s; hooks off "
+          f"{off_s:.2f} s = {steps * BATCH / off_s:.2f} img/s; the steps alone with the hooks "
+          f"on {steps * BATCH / (on_s - hooks_s):.2f} img/s; peak memory of the run with hooks "
+          f"{peak:.0f} MiB ({card})")
+    check_extractors_on_card(fid_mod, inception_mod, card)
+    print(f"[13 eval] phase 13 took {time.perf_counter() - t_phase:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1498,6 +1904,10 @@ def main() -> int:
     # ---- training from a folder of images ----
     with tempfile.TemporaryDirectory(prefix="pggan_smoke_folder_") as tmp:
         run_folder_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card, bf16_step_ms)
+
+    # ---- validation, FID and KID on the training path ----
+    with tempfile.TemporaryDirectory(prefix="pggan_smoke_eval_") as tmp:
+        run_eval_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card)
 
     # Every kernel of the three paths at its largest f32 shape on them;
     # `launches` is the training run's count (the demo's is checked in

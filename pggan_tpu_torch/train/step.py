@@ -20,6 +20,10 @@ state's `torch.Generator` on the step's device. The JAX package's runtime
 `lax.cond` for lazy R1 and its `lax.scan` chunking are not ported: the
 trainer runs a lazy-R1 window as one `include_r1=True` step followed by
 `include_r1=False` steps.
+
+`eval_losses` is the held-out evaluation forward of the trainer's
+`validation` (`pggan_tpu/train/trainer.py:598-625`): the same real fade, no
+update and no regularizer.
 """
 
 from __future__ import annotations
@@ -79,6 +83,32 @@ def normalize_images(img: torch.Tensor) -> torch.Tensor:
     return img.float()
 
 
+def fade_in_real(img: torch.Tensor, alpha: float) -> torch.Tensor:
+    """The real fade-in of scale > 0 (`step.py:258-277`): NHWC uint8 or
+    float → f32 (1-α)·upscale2d(downscale2d(real)) + α·real, NHWC."""
+    real = normalize_images(img).permute(0, 3, 1, 2)
+    return blend(upscale2d(downscale2d(real)), real, alpha).permute(0, 2, 3, 1)
+
+
+@torch.no_grad()
+def eval_losses(G: Generator, D: Discriminator, real: torch.Tensor, z: torch.Tensor,
+                alpha: float, *, w_adv: float, fade_real: bool,
+                compute_dtype: torch.dtype = torch.float32
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The validation forward (`trainer.py:598-625`): the reals faded as
+    the step fades them when `fade_real` (scale > 0), D on the
+    reals, G on z, D on the fakes; returns 0-d f32 tensors (mean real
+    logit, mean fake logit, BCE(real, 1) + BCE(fake, 0), the G loss).
+    R1, GP and drift are training regularizers and are left out."""
+    real = fade_in_real(real, alpha) if fade_real else normalize_images(real)
+    logit_real = D(real, alpha, compute_dtype=compute_dtype)
+    fake = G(z, alpha, compute_dtype=compute_dtype)
+    logit_fake = D(fake, alpha, compute_dtype=compute_dtype)
+    l_d = bce_with_logits(logit_real, 1) + bce_with_logits(logit_fake, 0)
+    return (logit_real.float().mean(), logit_fake.float().mean(), l_d,
+            generator_loss(logit_fake, w_adv))
+
+
 def make_train_step(cfg, scale_index: int, *, include_r1: Optional[bool] = None,
                     r1_scale: Optional[float] = None) -> Callable:
     """Build the step for one progressive scale. Returns
@@ -122,10 +152,8 @@ def make_train_step(cfg, scale_index: int, *, include_r1: Optional[bool] = None,
         eps = draw((batch,), torch.rand, eps)
 
         # ---- real fade-in (NHWC in and out; the ops see channels_last) ----
-        real = normalize_images(img_real.to(device)).permute(0, 3, 1, 2)
-        if scale_index > 0:
-            real = blend(upscale2d(downscale2d(real)), real, alpha)
-        real = real.permute(0, 2, 3, 1)
+        img_real = img_real.to(device)
+        real = fade_in_real(img_real, alpha) if scale_index > 0 else normalize_images(img_real)
 
         def d_fn(images):
             return D(images, alpha, compute_dtype=dt)

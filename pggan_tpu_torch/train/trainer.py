@@ -22,8 +22,25 @@ resumed run continues the run it resumes bit for bit (with the data
 stream's `start_batch`). A JAX checkpoint resumes here and the port's
 resume in JAX.
 
-Not ported yet (ROADMAP.md queue 1): validation and FID/KID (refused when
-configured), multiple cards and `steps_per_dispatch`.
+Evaluation (`trainer.py:544-808`): with `use_validation`, every
+`test_cycle` steps `validation` runs `val_batches` held-out batches (the
+30 % split) and as many fixed-seed latent batches through `eval_losses` in
+the run's compute dtype and logs `val_D_real`, `val_D_fake`, `val_L_D`,
+`val_L_G` (and the alias `valid_D_real`); every `fid_cycle` steps
+`compute_generative_metrics` samples `fid_samples` images from the weight
+average (else G) in f32, draws as many un-augmented held-out reals, each at
+most once, sends both through one extractor pass (`fid_extractor`:
+'random_conv' or 'inception', `fid_weights` an npz of InceptionV3 weights)
+and logs `fid`, `kid` and `kid_std`. The evaluation latents are drawn by CPU
+`torch.Generator`s seeded from (seed + 999, scale, batch) and (seed + 777,
+batch), so they are the same in every process, on every device and after a
+resume, but not JAX's (its threefry keys cannot be reproduced without
+JAX); the reals' selection is numpy's and equals JAX's index for index.
+The fixed-seed extractor weights are not JAX's either: a port FID without
+`fid_weights` compares only with the port's own.
+
+Not ported yet (ROADMAP.md queue 1): multiple cards and
+`steps_per_dispatch`.
 """
 
 from __future__ import annotations
@@ -33,28 +50,35 @@ import copy
 import signal
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from pggan_tpu_torch.config import Config
-from pggan_tpu_torch.data.dataset import build_dataset, split_dataset
+from pggan_tpu_torch.data.dataset import ImageFolderDataset, build_dataset, split_dataset
 from pggan_tpu_torch.data.pipeline import DataPipeline
 from pggan_tpu_torch.losses.collector import LossCollector
+from pggan_tpu_torch.metrics.fid import (RandomConvFeatures, compute_activations,
+                                          frechet_distance)
+from pggan_tpu_torch.metrics.inception import InceptionV3Features
+from pggan_tpu_torch.metrics.kid import kid_between_features
 from pggan_tpu_torch.models.discriminator import Discriminator
 from pggan_tpu_torch.models.generator import Generator
 from pggan_tpu_torch.ops.equalized import (adam_state_to_jax,
                                            load_adam_state_from_jax,
                                            load_params_from_jax, params_to_jax)
 from pggan_tpu_torch.train.schedule import ProgressiveSchedule
-from pggan_tpu_torch.train.step import TrainState, init_train_state, make_train_step
+from pggan_tpu_torch.train.step import (TrainState, eval_losses, init_train_state,
+                                        make_train_step)
 from pggan_tpu_torch.utils import checkpoint as ckpt_lib
 from pggan_tpu_torch.utils.image import save_image as save_image_grid
 from pggan_tpu_torch.utils.logging import MetricLogger
 
 # Seed stream of the latents (the JAX trainer folds 2 into its base key).
 _KEY_LATENTS = 2
+# Seed offsets of the evaluation latents (`trainer.py:632-641,762-771`).
+_SEED_VALIDATION, _SEED_FID = 999, 777
 # `__meta__` key of the latent generator's state. The JAX loader reads only
 # `rng` (a JAX key), so the port writes its state under its own key.
 RNG_META_KEY = "torch_rng"
@@ -67,15 +91,29 @@ def _latent_rng(seed: int, global_step: int, device: torch.device) -> torch.Gene
     return torch.Generator(device=device).manual_seed(int(state.generate_state(1)[0]))
 
 
+def eval_latents(key, shape) -> torch.Tensor:
+    """Fixed latents on the CPU from a torch generator seeded by the integer
+    tuple `key`: the same values in every process and for every device."""
+    state = np.random.SeedSequence([int(k) for k in key])
+    gen = torch.Generator().manual_seed(int(state.generate_state(1)[0]))
+    return torch.randn(shape, generator=gen)
+
+
+def generative_scores(f_real: np.ndarray, f_fake: np.ndarray) -> Dict[str, float]:
+    """FID and KID (mean, std) of two feature matrices, host float64
+    (`trainer.py:801-808`)."""
+    mu_r, sig_r = f_real.mean(0), np.cov(f_real, rowvar=False)
+    mu_f, sig_f = f_fake.mean(0), np.cov(f_fake, rowvar=False)
+    kid, kid_std = kid_between_features(f_real, f_fake)
+    return {"fid": frechet_distance(mu_r, sig_r, mu_f, sig_f), "kid": kid,
+            "kid_std": kid_std}
+
+
 class ProgressiveGANTrainer:
     """Create with `pggan_tpu_torch.registry.create_model(cfg)`, or
     directly and then `setup()`."""
 
     def __init__(self, cfg: Config, *, device="cuda"):
-        if cfg.use_validation or cfg.fid_cycle:
-            raise NotImplementedError(
-                "validation and FID are not ported to pggan_tpu_torch yet "
-                "(ROADMAP.md queue 1); set use_validation: false, fid_cycle: 0")
         self.cfg = cfg
         self.device = torch.device(device)
         self.schedule = ProgressiveSchedule.from_config(cfg)
@@ -85,6 +123,10 @@ class ProgressiveGANTrainer:
         self.logger: Optional[MetricLogger] = None
         self.dataset = None
         self._pipeline: Optional[DataPipeline] = None
+        self._train_indices = self._valid_indices = None
+        self._valid_pipeline: Optional[DataPipeline] = None
+        self._eval_ds = None
+        self._fid_extractor_cache = None
         self._step_fn = None
         self._r1_interval = 1
         self._last_metrics: Dict[str, torch.Tensor] = {}
@@ -133,10 +175,16 @@ class ProgressiveGANTrainer:
         self._rate_anchor = None        # the batch may change with the scale
 
     def set_dataset(self) -> None:
-        """The dataset at the current resolution and its 70/30 split."""
+        """The dataset at the current resolution and its 70/30 split. The
+        validation pipeline and the FID reals' dataset hold the old
+        resolution, so they go (`trainer.py:195-202`)."""
         self.dataset = build_dataset(self.cfg, self.schedule.scale_index, is_master=True)
-        self._train_indices, _ = split_dataset(len(self.dataset), 0.7,
-                                               seed=int(self.cfg.seed))
+        self._train_indices, self._valid_indices = split_dataset(
+            len(self.dataset), 0.7, seed=int(self.cfg.seed))
+        if self._valid_pipeline is not None:
+            self._valid_pipeline.close()
+            self._valid_pipeline = None
+        self._eval_ds = None
 
     def set_data_iterator(self) -> None:
         """The batch stream of this scale, fast-forwarded past the batches
@@ -292,6 +340,12 @@ class ProgressiveGANTrainer:
                     self.loss_collector.print_loss(step)
                 if step % cfg.test_cycle == 0:
                     self.save_image(images, step)
+                    if cfg.use_validation:
+                        self.validation(step)
+                if cfg.fid_cycle and step % cfg.fid_cycle == 0 and step:
+                    scores = self.compute_generative_metrics()
+                    self.logger.log(step, scores)
+                    print(f"step {step}: FID = {scores['fid']:.2f}  KID = {scores['kid']:.5f}")
                 step += 1
                 self.global_step = step
             self.save_checkpoint(step, wait=True)
@@ -311,6 +365,117 @@ class ProgressiveGANTrainer:
         real, fake = (x[:8].float().cpu().numpy() for x in images)
         return save_image_grid(self.cfg.save_root, self.cfg.run_id, step, "imgs",
                                [real, fake])
+
+    # -- evaluation -----------------------------------------------------------
+    def validation(self, step: int) -> None:
+        """Held-out evaluation (`trainer.py:544-642`): `val_batches` batches
+        of the valid split (a pipeline of its own: 2 workers, prefetch 1,
+        seed 7) through D, as many fixed-seed latent batches through G and
+        D, in the run's compute dtype; the adversarial losses on those
+        logits, averaged, logged as `val_*` (and `valid_D_real`)."""
+        if self._valid_indices is None or len(self._valid_indices) == 0:
+            return
+        cfg, state = self.cfg, self.state
+        if self._valid_pipeline is None:
+            self._valid_pipeline = DataPipeline(
+                self.dataset, self.batch_size, indices=self._valid_indices,
+                num_workers=2, prefetch_depth=1, seed=7, device=self.device)
+        scale, alpha = self.schedule.scale_index, float(self.schedule.alpha)
+        dt = torch.bfloat16 if str(cfg.compute_dtype) == "bfloat16" else torch.float32
+        totals = np.zeros(4, np.float64)
+        n_batches = max(1, int(cfg.val_batches))
+        for b in range(n_batches):
+            real = next(self._valid_pipeline)
+            z = eval_latents((int(cfg.seed) + _SEED_VALIDATION, scale, b),
+                             (real.shape[0], int(cfg.latent_dim))).to(self.device)
+            out = eval_losses(state.G, state.D, real, z, alpha, w_adv=float(cfg.W_adv),
+                              fade_real=scale > 0, compute_dtype=dt)
+            totals += torch.stack(out).double().cpu().numpy()
+        totals /= n_batches
+        if self.logger is not None:
+            self.logger.log(step, {
+                "val_D_real": totals[0], "val_D_fake": totals[1],
+                "val_L_D": totals[2], "val_L_G": totals[3],
+                "valid_D_real": totals[0],              # the legacy name
+            })
+
+    def _eval_dataset(self):
+        """The un-augmented twin of the training dataset, under the run's
+        decode-cache policy (FID reals are not flipped or jittered)."""
+        if self._eval_ds is None:
+            if isinstance(self.dataset, ImageFolderDataset):
+                cfg = self.cfg
+                self._eval_ds = ImageFolderDataset(
+                    [], self.schedule.scale_index, augment=False, paths=self.dataset.paths,
+                    cache_decoded=cfg.cache_decoded, decode_cache_mb=int(cfg.decode_cache_mb))
+            else:
+                self._eval_ds = self.dataset          # synthetic: no augmentation
+        return self._eval_ds
+
+    def _fid_extractor(self):
+        """The configured extractor on the run's device, built once a run
+        (it does not depend on the resolution): `fid_extractor`
+        'random_conv' (256 features) or 'inception' (`fid_weights`)."""
+        if self._fid_extractor_cache is None:
+            if str(self.cfg.fid_extractor) == "inception":
+                self._fid_extractor_cache = InceptionV3Features(
+                    weights=self.cfg.fid_weights, device=self.device)
+            else:
+                self._fid_extractor_cache = RandomConvFeatures(feature_dim=256,
+                                                               device=self.device)
+        return self._fid_extractor_cache
+
+    def fid_batch_size(self, n: int) -> int:
+        return max(8, min(64, self.batch_size, n))
+
+    def fid_reals(self, n: int, batch: int) -> Iterator[np.ndarray]:
+        """uint8 batches of up to n distinct un-augmented reals of the valid
+        split (the train split when the valid one holds less than a batch),
+        drawn as the JAX trainer draws them (`trainer.py:773-797`)."""
+        if self._valid_indices is not None and len(self._valid_indices) >= batch:
+            indices = self._valid_indices
+        else:
+            indices = self._train_indices
+            print("[pggan_tpu_torch] FID reals: valid split smaller than one batch — "
+                  "falling back to train indices")
+        eval_ds = self._eval_dataset()
+        # each real at most once: duplicates would bias KID's within-real sum
+        chosen = (np.asarray(indices) if len(indices) <= n
+                  else np.random.RandomState(0).choice(indices, size=n, replace=False))
+        for start in range(0, len(chosen), batch):
+            yield np.stack([eval_ds.get(int(i), np.random.RandomState(int(i)))
+                            for i in chosen[start:start + batch]])
+
+    def fid_fakes(self, n: int, batch: int) -> Iterator[torch.Tensor]:
+        """Batches of samples of the weight average (else G) in f32, clipped
+        to [-1, 1], on the run's device, until n are drawn. f32 as the JAX
+        trainer's sampler (`trainer.py:751-755`), whatever the run's dtype."""
+        cfg, state = self.cfg, self.state
+        G = state.G_ema if state.G_ema is not None else state.G
+        alpha = float(self.schedule.alpha)
+        for i in range(-(-n // batch)):
+            z = eval_latents((int(cfg.seed) + _SEED_FID, i),
+                             (batch, int(cfg.latent_dim))).to(self.device)
+            with torch.no_grad():
+                fake = G(z, alpha).clamp(-1.0, 1.0)
+            yield fake
+
+    def compute_fid(self, num_samples: Optional[int] = None) -> float:
+        """FID only — see `compute_generative_metrics` for the full set."""
+        return self.compute_generative_metrics(num_samples)["fid"]
+
+    def compute_generative_metrics(self, num_samples: Optional[int] = None
+                                   ) -> Dict[str, float]:
+        """`fid`, `kid` and `kid_std` between `num_samples` (default
+        `fid_samples`) generated images and the held-out reals at the
+        current scale, from one pass of each set through the configured
+        extractor (`trainer.py:695-808`)."""
+        n = int(num_samples or self.cfg.fid_samples)
+        batch = self.fid_batch_size(n)
+        extractor = self._fid_extractor()
+        f_real = compute_activations(self.fid_reals(n, batch), extractor, max_samples=n)
+        f_fake = compute_activations(self.fid_fakes(n, batch), extractor, max_samples=n)
+        return generative_scores(f_real, f_fake)
 
     def save_checkpoint(self, global_step: int, *, wait: bool = False) -> None:
         """G and D (params + Adam state) and, with the average on, Gema
@@ -418,7 +583,7 @@ class ProgressiveGANTrainer:
 
     def close(self) -> None:
         """Wait for a checkpoint still being written, then stop the writer,
-        the data pipeline and the metrics file."""
+        the data pipelines and the metrics file."""
         if self._ckpt_future is not None:
             future, self._ckpt_future = self._ckpt_future, None
             try:
@@ -426,9 +591,10 @@ class ProgressiveGANTrainer:
             except Exception as exc:    # fit's own error is already on its way
                 print(f"[pggan_tpu_torch] checkpoint write failed: {exc!r}")
         self._ckpt_pool.shutdown(wait=True)
-        if self._pipeline is not None:
-            self._pipeline.close()
-            self._pipeline = None
+        for pipeline in (self._pipeline, self._valid_pipeline):
+            if pipeline is not None:
+                pipeline.close()
+        self._pipeline = self._valid_pipeline = None
         if self.logger is not None:
             self.logger.close()
             self.logger = None

@@ -63,21 +63,33 @@ def _jax_cfg():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_step():
-    """(state before, state after, metrics, img, z1, z2) of one JAX step."""
-    cfg = _jax_cfg()
+def _jax_step_at(scale, over=()):
+    """(state before, state after, metrics, img, z1, z2, eps) of one JAX
+    step at `scale` (alpha ALPHA at scale 1, 0 at scale 0), the config's
+    keys `over` (pairs) set."""
+    cfg = JaxConfig({"depths": DEPTHS, "latent_dim": LATENT, "donate_buffers": False,
+                     **dict(over)})
     kg, kd, ks = jax.random.split(jax.random.PRNGKey(0), 3)
-    params_g = init_generator_params(kg, latent_dim=LATENT, depths=DEPTHS, scale=1)
-    params_d = init_discriminator_params(kd, depths=DEPTHS, scale=1)
+    params_g = init_generator_params(kg, latent_dim=LATENT, depths=DEPTHS, scale=scale)
+    params_d = init_discriminator_params(kd, depths=DEPTHS, scale=scale)
     opt_g, opt_d = make_optimizers(cfg)
     state = jax_init_train_state(ks, params_g, params_d, opt_g, opt_d)
-    img = np.random.RandomState(0).randint(0, 256, (BATCH, RES, RES, 3), dtype=np.uint8)
-    new_state, metrics, _ = make_train_step(cfg, 1, opt_g, opt_d)(
-        state, jnp.asarray(img), jnp.float32(ALPHA))
-    _, k_z1, k_z2, _ = jax.random.split(state.rng, 4)       # step.py:254
+    res = 4 * 2 ** scale
+    img = np.random.RandomState(0).randint(0, 256, (BATCH, res, res, 3), dtype=np.uint8)
+    new_state, metrics, _ = make_train_step(cfg, scale, opt_g, opt_d)(
+        state, jnp.asarray(img), jnp.float32(ALPHA if scale else 0.0))
+    _, k_z1, k_z2, k_eps = jax.random.split(state.rng, 4)       # step.py:254
     z1 = np.array(jax.random.normal(k_z1, (BATCH, LATENT), jnp.float32))
     z2 = np.array(jax.random.normal(k_z2, (BATCH, LATENT), jnp.float32))
-    return state, new_state, {k: float(v) for k, v in metrics.items()}, img, z1, z2
+    eps = np.array(jax.random.uniform(k_eps, (BATCH,), jnp.float32))
+    return (state, new_state, {k: float(v) for k, v in metrics.items()}, img, z1, z2,
+            eps)
+
+
+def _jax_step():
+    """(state before, state after, metrics, img, z1, z2) of one JAX step
+    with exactly tests/test_train_step.py's scale-1 setup."""
+    return _jax_step_at(1)[:6]
 
 
 def _port_state(jax_state, cfg):
@@ -101,6 +113,12 @@ def test_one_step_matches_make_train_step():
     assert real.shape == fake.shape == (BATCH, RES, RES, 3)
     assert real.dtype == fake.dtype == torch.float32
     assert not real.requires_grad and not fake.requires_grad
+    _assert_step_matches(got, want, port, new_state, cfg)
+
+
+def _assert_step_matches(got, want, port, new_state, cfg):
+    """The port's step metrics and state after the step against JAX's: the
+    losses, Adam's first moments (the gradients) and the weights."""
     for key in want:
         np.testing.assert_allclose(float(got[key]), want[key], err_msg=key, **LOSS_TOL)
     for net, opt, jax_opt, jax_params, lr in (
@@ -117,6 +135,57 @@ def test_one_step_matches_make_train_step():
         for key in theirs:
             np.testing.assert_allclose(mine[key], theirs[key], rtol=0,
                                        atol=2 * lr, err_msg=key)
+
+
+@pytest.mark.parametrize("over, keys", [
+    ((("loss_mode", "wgangp"),), {"L_D_gp", "L_D_eps"}),
+    ((("r1_target", "loss"),), {"L_D_r1"})], ids=["wgangp", "r1_target_loss"])
+def test_scale0_step_modes_match_make_train_step(over, keys):
+    """One whole step of the wgangp recipe (BCE + gradient penalty on
+    eps-interpolates, as a sum, + drift, real and fake through one 2B D
+    forward) and one r1 step with the penalty on the loss, against JAX
+    `make_train_step` at scale 0 (tests/test_train_step.py's
+    `base_cfg(...)`, batch 8 at 4×4), fed JAX's z1, z2 and eps."""
+    state, new_state, want, img, z1, z2, eps = _jax_step_at(0, over)
+    cfg = _port_cfg(**dict(over))
+    port = _port_state(state, cfg)
+    got, _ = port_step.make_train_step(cfg, 0)(
+        port, torch.from_numpy(img), 0.0, z1=torch.from_numpy(z1),
+        z2=torch.from_numpy(z2), eps=torch.from_numpy(eps))
+    assert set(got) == set(want) == {"L_D", "L_D_real", "L_D_fake", "L_G"} | keys
+    assert all(want[k] > 0 for k in keys - {"L_D_eps"})
+    _assert_step_matches(got, want, port, new_state, cfg)
+
+
+def test_eval_losses_match_jax_composition():
+    """The validation forward at scale 1, alpha 0.5 (so the reals are
+    faded) against the JAX trainer's `_eval` composition
+    (`trainer.py:598-625`) of discriminator_apply, generator_apply,
+    bce_with_logits and generator_loss on the same params, reals and z."""
+    from pggan_tpu.models import discriminator_apply, generator_apply
+    from pggan_tpu.ops import basic as jbasic
+
+    state = _jax_step()[0]
+    rs = np.random.RandomState(8)
+    img = rs.randint(0, 256, (BATCH, RES, RES, 3), dtype=np.uint8)
+    z = rs.randn(BATCH, LATENT).astype(np.float32)
+    alpha = jnp.float32(ALPHA)
+    real = jnp.asarray(img, jnp.float32) / 127.5 - 1.0
+    real = jbasic.blend(jbasic.upscale2d(jbasic.downscale2d(real, 2), 2), real, alpha)
+    logit_real = discriminator_apply(state.params_D, real, alpha)
+    logit_fake = discriminator_apply(state.params_D, generator_apply(
+        state.params_G, jnp.asarray(z), alpha), alpha)
+    want = [float(jnp.mean(logit_real)), float(jnp.mean(logit_fake)),
+            float(jgan.bce_with_logits(logit_real, 1) + jgan.bce_with_logits(logit_fake, 0)),
+            float(jgan.generator_loss(logit_fake, 2.0))]
+    G = generator.params_from_jax(jax_ckpt.tree_to_arrays(state.params_G))
+    D = discriminator.params_from_jax(jax_ckpt.tree_to_arrays(state.params_D))
+    args = (G, D, torch.from_numpy(img), torch.from_numpy(z), ALPHA)
+    got = port_step.eval_losses(*args, w_adv=2.0, fade_real=True)
+    assert all(t.dtype == torch.float32 and t.ndim == 0 and not t.requires_grad for t in got)
+    np.testing.assert_allclose([float(t) for t in got], want, **LOSS_TOL)
+    unfaded = port_step.eval_losses(*args, w_adv=2.0, fade_real=False)
+    assert abs(float(unfaded[0]) - want[0]) > 100 * abs(float(got[0]) - want[0])
 
 
 def test_jax_checkpoint_resumes_in_the_port(tmp_path, capsys):
@@ -320,6 +389,90 @@ def test_batch_stream_matches_data_pipeline():
                 got = next(port)
                 assert got.dtype == torch.uint8 and got.shape == (4, 8, 8, 3)
                 np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _eval_trainer(**over):
+    """A port trainer on synthetic data at scale 0 (4×4), batch BATCH, set up
+    on the CPU (no step taken)."""
+    keys = {"depths": DEPTHS, "latent_dim": LATENT, "batch_per_gpu": BATCH,
+            "synthetic_dataset_size": 64, "num_data_workers": 2, "use_validation": True,
+            **over}
+    return ProgressiveGANTrainer(Config(keys), device="cpu").setup()
+
+
+def test_validation_stream_matches_jax_pipeline(monkeypatch):
+    """Validation reads the JAX trainer's valid stream (`trainer.py:565-571`:
+    the 30 % split, DataPipeline seed 7, continued from call to call), and
+    each call the same latents, drawn from (seed + 999, scale, batch)."""
+    from pggan_tpu.data.dataset import split_dataset as jax_split
+    from pggan_tpu_torch.train import trainer as trainer_mod
+
+    calls = []
+
+    def spy(G, D, real, z, alpha, **kw):
+        calls.append((real.clone(), z.clone(), kw))
+        return tuple(torch.zeros(()) for _ in range(4))
+    monkeypatch.setattr(trainer_mod, "eval_losses", spy)
+    trainer = _eval_trainer(val_batches=3, seed=5)
+    try:
+        _, valid = jax_split(64, 0.7, seed=5)
+        np.testing.assert_array_equal(trainer._valid_indices, valid)
+        trainer.validation(0)
+        trainer.validation(2)
+    finally:
+        trainer.close()
+    with DataPipeline(JaxSynthetic(64, scale_index=0), BATCH, indices=valid, num_workers=2,
+                      prefetch_depth=1, seed=7) as pipe:
+        for real, _, kw in calls:
+            np.testing.assert_array_equal(real.numpy(), next(pipe))
+            assert kw == {"w_adv": 1.0, "fade_real": False, "compute_dtype": torch.float32}
+    for b, (_, z, _) in enumerate(calls):
+        want = trainer_mod.eval_latents((5 + 999, 0, b % 3), (BATCH, LATENT))
+        assert torch.equal(z, want) and torch.equal(z, calls[b % 3][1])
+    assert not torch.equal(calls[0][1], calls[1][1])
+
+
+@pytest.mark.parametrize("size, n", [(64, 12), (40, 48), (20, 16)],
+                         ids=["sampled", "whole_valid_split", "train_fallback"])
+def test_fid_reals_match_jax_selection(size, n, monkeypatch, capsys):
+    """The FID reals, batch by batch, equal those JAX's
+    `compute_generative_metrics` draws (`RandomState(0).choice` without
+    replacement, `get(i, RandomState(i))`, the train split when the valid one
+    holds less than one batch), run on a stand-in trainer whose extraction
+    records the batches."""
+    import pggan_tpu.metrics as jax_metrics
+
+    trainer = _eval_trainer(synthetic_dataset_size=size)
+    batch = trainer.fid_batch_size(n)
+    try:
+        got = list(trainer.fid_reals(n, batch))
+    finally:
+        trainer.close()
+    fell_back = "falling back to train indices" in capsys.readouterr().out
+    seen = []
+
+    def record(batches, extractor, max_samples=None):
+        seen.append([np.asarray(b) for b in batches])
+        return np.random.RandomState(len(seen)).randn(min(len(seen[-1]) * batch, n), 4)
+    monkeypatch.setattr(jax_metrics, "compute_activations", record)
+    res = trainer.schedule.resolution
+    stand_in = types.SimpleNamespace(
+        cfg=JaxConfig({"latent_dim": LATENT, "fid_samples": n}), local_batch_size=BATCH,
+        state=types.SimpleNamespace(params_G_ema=None, params_G=None),
+        schedule=types.SimpleNamespace(alpha=0.0), is_master=True,
+        _fid_sampler=lambda p, z, a: np.zeros((z.shape[0], res, res, 3), np.float32),
+        _fid_sampler_packed=False, _fid_extractor=lambda: None,
+        _eval_dataset=lambda: JaxSynthetic(size, scale_index=0),
+        _valid_indices=trainer._valid_indices, _train_indices=trainer._train_indices)
+    JaxTrainer.compute_generative_metrics(stand_in, n)
+    assert fell_back == ("falling back" in capsys.readouterr().out) == (size == 20)
+    want = seen[0]
+    assert [b.shape for b in got] == [b.shape for b in want]
+    assert sum(len(b) for b in got) == min(n, len(trainer._train_indices if size == 20
+                                                    else trainer._valid_indices))
+    for mine, theirs in zip(got, want):
+        assert mine.dtype == np.uint8
+        np.testing.assert_array_equal(mine, theirs)
 
 
 # ---- the entry point ---------------------------------------------------------

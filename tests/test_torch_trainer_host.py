@@ -3,19 +3,25 @@ pggan_tpu_torch.train` (in process) on a folder of images, the run
 directory it leaves (metrics.jsonl with the JAX trainer's keys, the sample
 grids, the config snapshot), SIGTERM mid-run and the exact resume,
 asynchronous checkpoints against in-place updates, which config keys count
-as set (against the JAX package's Config), and the model registry.
+as set (against the JAX package's Config), the model registry, and the
+evaluation hooks (validation, FID and KID in the loop,
+`python -m pggan_tpu_torch.eval_metrics`).
 
 Nothing here compiles a JAX program: the JAX side is its config, its
 metrics logger and its checkpoint reader.
 """
 
+import contextlib
 import glob
+import io
+import json
 import os
 import signal
 import threading
 
 import numpy as np
 import pytest
+import torch
 import yaml
 from PIL import Image
 
@@ -221,3 +227,128 @@ def test_registry_dispatches_pggan(tmp_path):
         trainer.close()
     with pytest.raises(KeyError, match="stylegan"):
         registry.create_model(Config(dict(keys, model_id="stylegan")), device="cpu")
+
+
+# ---- validation, FID and KID (the JAX trainer's evaluation hooks) -----------
+
+EVAL_TOTAL, FID_STEP = 8, 7        # the last FID at step 7 = checkpoint 8's state
+VAL_KEYS = {"val_D_real", "val_D_fake", "val_L_D", "val_L_G", "valid_D_real"}
+
+
+def _eval_keys(save_root, **over):
+    """A tiny model on synthetic data: scale 0 (4×4) for 4 steps, then 8×8
+    with an alpha fade; validation every 2 steps, FID/KID at step 7."""
+    return {"latent_dim": 16, "depths": [16, 8], "batch_per_gpu": 8,
+            "save_root": str(save_root), "data_backend": "synthetic",
+            "synthetic_dataset_size": 64, "num_data_workers": 2, "loss_cycle": 2,
+            "test_cycle": 2, "ckpt_cycle": 100, "max_step_at_scale": [4, 100],
+            "alpha_jump_start": [-1, 1], "alpha_jump_interval": [0, 1],
+            "alpha_jump_Ntimes": [0, 3], "use_validation": True, "val_batches": 2,
+            "fid_cycle": FID_STEP, "fid_samples": 16, "g_ema_decay": 0.9, **over}
+
+
+@pytest.fixture(scope="module")
+def eval_run(tmp_path_factory):
+    """`python -m pggan_tpu_torch.train` (in process) for EVAL_TOTAL steps
+    with validation and FID on, the validation forward's arguments
+    recorded. Returns (root, metrics.jsonl records, calls, output)."""
+    from pggan_tpu_torch.train import trainer as trainer_mod
+
+    root = tmp_path_factory.mktemp("eval")
+    config = root / "eval.yaml"
+    config.write_text(yaml.safe_dump(_eval_keys(root)))
+    calls, forward = [], trainer_mod.eval_losses
+
+    def recording(G, D, real, z, alpha, **kw):
+        calls.append((G.resolution, tuple(real.shape), real.dtype, kw))
+        return forward(G, D, real, z, alpha, **kw)
+    out = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(out):
+        mp.setattr(trainer_mod, "eval_losses", recording)
+        rc = port_train.main(["ev", "--config", str(config), "--max_step", str(EVAL_TOTAL),
+                              "--device", "cpu", "--compute_dtype", "bfloat16"])
+    assert rc == 0
+    records = [yaml.safe_load(line) for line in
+               (root / "ev" / "metrics.jsonl").read_text().splitlines()]
+    return root, records, calls, out.getvalue()
+
+
+def test_validation_logs_both_sides_across_a_scale_jump(eval_run):
+    """`val_*` (and the legacy `valid_D_real`) every test_cycle step, before
+    and after the jump at step 4: finite, strictly positive BCE losses (the
+    fake side and the losses were evaluated), val_batches forwards each in
+    the run's dtype, the reals faded exactly at scale 1."""
+    _, records, calls, _ = eval_run
+    val = [r for r in records if "val_L_D" in r]
+    assert [r["step"] for r in val] == [0, 2, 4, 6]
+    for r in val:
+        assert set(r) == {"step", "time"} | VAL_KEYS
+        assert all(np.isfinite(r[k]) for k in VAL_KEYS)
+        assert r["val_L_D"] > 0 and r["val_L_G"] > 0 and r["valid_D_real"] == r["val_D_real"]
+    assert len(calls) == 2 * len(val)
+    for res, shape, dtype, kw in calls:
+        assert shape == (8, res, res, 3) and dtype == torch.uint8
+        assert kw == {"w_adv": 1.0, "fade_real": res == 8, "compute_dtype": torch.bfloat16}
+    assert {res for res, *_ in calls} == {4, 8}
+
+
+def test_fid_cycle_logs_fid_and_kid_and_eval_metrics_agrees(eval_run, capsys):
+    """`fid`, `kid`, `kid_std` at the fid_cycle step, printed as the JAX
+    trainer prints them; `python -m pggan_tpu_torch.eval_metrics` on the
+    final checkpoint (the state the step-7 metrics saw) prints one JSON line
+    with the JAX tool's keys and the same values (rtol 1e-6: the same f32
+    features on the CPU)."""
+    from pggan_tpu_torch import eval_metrics
+
+    root, records, _, out = eval_run
+    scores = [r for r in records if "fid" in r]
+    assert [r["step"] for r in scores] == [FID_STEP]
+    assert set(scores[0]) == {"step", "time", "fid", "kid", "kid_std"}
+    assert all(np.isfinite(scores[0][k]) for k in ("fid", "kid", "kid_std"))
+    assert scores[0]["fid"] >= 0 and f"step {FID_STEP}: FID = " in out
+    rc = eval_metrics.main(["--ckpt_id", "ev", "--save_root", str(root), "--ckpt_step",
+                            str(EVAL_TOTAL), "--device", "cpu"])
+    assert rc == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(line) == {"ckpt_id", "step", "scale", "resolution", "alpha", "extractor",
+                         "num_samples", "ema", "fid", "kid", "kid_std"}
+    assert (line["step"], line["scale"], line["resolution"]) == (EVAL_TOTAL, 1, 8)
+    assert line["extractor"] == "random_conv" and line["num_samples"] == 16 and line["ema"]
+    for key in ("fid", "kid", "kid_std"):
+        np.testing.assert_allclose(line[key], scores[0][key], rtol=1e-6, atol=1e-12,
+                                   err_msg=key)
+
+
+def test_compute_fid_uses_each_real_at_most_once(tmp_path, monkeypatch):
+    """With fewer held-out reals (12 of 40) than samples (48), every real
+    enters the features once and all 48 fakes do; KID's subsets then
+    resample (std > 0). compute_fid gives a finite, non-negative FID."""
+    from pggan_tpu_torch.train import trainer as trainer_mod
+
+    sizes, extract = [], trainer_mod.compute_activations
+
+    def spy(batches, extractor, **kw):
+        f = extract(batches, extractor, **kw)
+        sizes.append(f.shape[0])
+        return f
+    monkeypatch.setattr(trainer_mod, "compute_activations", spy)
+    trainer = ProgressiveGANTrainer(Config(_eval_keys(tmp_path, synthetic_dataset_size=40)),
+                                    device="cpu").setup()
+    try:
+        assert len(trainer._valid_indices) == 12
+        scores = trainer.compute_generative_metrics(num_samples=48)
+        fid = trainer.compute_fid(num_samples=16)
+    finally:
+        trainer.close()
+    assert sizes == [12, 48, 12, 16]
+    assert np.isfinite(scores["kid"]) and scores["kid_std"] > 0
+    assert np.isfinite(fid) and fid >= 0
+
+
+def test_eval_metrics_without_a_card_exits_nonzero(tmp_path, capsys):
+    from pggan_tpu_torch import eval_metrics
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    rc = eval_metrics.main(["--ckpt_id", "ev", "--save_root", str(tmp_path)])
+    assert rc != 0 and "--device cpu" in capsys.readouterr().err
