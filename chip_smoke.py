@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's sampling, training, ops and evaluation paths once on one CUDA card.
+"""Drive the PyTorch port's sampling, training, ops, evaluation and serving paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -50,7 +50,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      batch and latents, r1 and wgangp: losses and Adam's first moments (=
      the gradients, β1 = 0); the kernel path run twice agrees bit for bit;
      on each r1 draw, the leaky-ReLU inputs that fall on the other side of 0
-     on the other path, counted by call;
+     on the other path, counted by call; and a probe of the draw whose G
+     gradient differs most: the step with D's (and G's) leaky ReLUs forced
+     to the kernel path's side of 0, and the gradient of the 128² toRGB
+     weight split into its pixels' terms beside the flips near them;
  10. times on the card: the R1 step, the step without R1 and the wgangp
      step, each in bf16, f32 with TF32 off and f32 with TF32 on; peak
      memory; the train path's
@@ -88,7 +91,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      `pggan_tpu_torch.eval_metrics` on the last checkpoint against the
      in-run metrics; the extractors on the card against the CPU; the times
      of validation(), of the parts of an FID/KID call and of the steps with
-     the hooks on and off.
+     the hooks on and off; whether the recipe's `device_data_cache: auto`
+     turned the device data cache on;
+ 14. the device data cache on the training path through
+     `pggan_tpu_torch.train.main` (`device_data_cache: true`, phase 12's 48
+     JPEGs, phase 8's checkpoint, bf16, batch 16): the cache line, every
+     batch uint8 [16,256,256,3] on the card, the launches per step phase
+     8's, the unaugmented batches equal to the host pipeline's byte for
+     byte and the augmented ones to the same draws assembled on the CPU
+     within one step of 255; SIGTERM and the resume's first batch; the
+     assembly's rates and the trainer's imgs_per_sec over lazy-R1/16 spans
+     with the cache, the host pipeline and synthetic data;
+ 15. the serving artifact: `pggan_tpu_torch.demo --export` on phase 4's
+     checkpoint, the artifact loaded in a fresh process and sampled at
+     batches 1, 3 and 16 against the eager G (f32, TF32 off), 2 and 13
+     launches per forward, a bf16 artifact against the eager bf16 G, an
+     artifact exported on the CPU served on the card, and
+     tools/bench_serving_torch.py in direct and artifact modes.
 
 The second-to-last lines are a JSON object describing the kernels and the
 card's name and power limit; the last line is
@@ -101,6 +120,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import functools
 import io
 import itertools
 import json
@@ -155,8 +175,33 @@ PIPELINE_BATCHES = 24
 # EVAL_TEST_CYCLE steps and FID every EVAL_FID_CYCLE (cut from 4000 each).
 EVAL_CONFIG = os.path.join("configs", "config_demo256_fid.yaml")
 EVAL_KEYS = ("compute_dtype", "loss_mode", "g_ema_decay", "use_validation", "val_batches",
-             "fid_samples", "fid_extractor", "fid_weights")
+             "fid_samples", "fid_extractor", "fid_weights", "device_data_cache",
+             "device_cache_mb")
 EVAL_IMAGES, EVAL_STEPS, EVAL_TEST_CYCLE, EVAL_FID_CYCLE = 96, 6, 2, 3
+# Phase 14: the device data cache on the training path, on phase 12's folder
+# (48 JPEGs: 9.4 MB at 256²). CACHE_STEPS steps for the unaugmented
+# runs; FOLDER_STEPS and SIGTERM_AFTER for the augmented one and its cut;
+# the lazy-R1 runs take r1_interval LAZY_R1 with a loss line every LAZY_R1
+# steps, and their imgs_per_sec is read over LAZY_WINDOWS such spans; the
+# assembly alone is timed over ASSEMBLE_BATCHES batches. Augmented batches
+# on the card against the same assembly on the CPU: the same f32 ops, the
+# contrast's mean summed in another order, so at most one step of 255
+# (ASSEMBLE_LSB) and rarely that (ASSEMBLE_MEAN). Against the PIL path's
+# batches the distance is printed, not bounded: the PIL path rounds to
+# uint8 between ops and turns the hue through 8-bit HSV, and the JAX
+# package's cache reads the same distance from its PIL path.
+CACHE_STEPS, LAZY_R1, LAZY_WINDOWS, ASSEMBLE_BATCHES = 4, 16, 2, 50
+# A cycle no run reaches, and not the default 10000 (a key equal to its
+# default does not count as set, and a resume then takes the checkpoint's).
+NEVER = 100003
+ASSEMBLE_LSB, ASSEMBLE_MEAN = 1, 0.01
+# Phase 15: the serving artifact of phase 4's checkpoint sampled at these
+# batches in a fresh process; f32 with TF32 off, the artifact against the
+# eager G (the same kernels and cuDNN calls: equal up to the convolution
+# algorithm cuDNN picks); bf16 within one bf16 step of the larger value.
+SERVE_BATCHES, SERVE_ATOL = (1, 3, BATCH), 1e-5
+# Kernel launches of one forward of G at scale 6 (as phase 4's).
+SERVE_LAUNCHES = {"pixel_norm": 2, "lrelu_pixel_norm": 13}
 # Launches of one validation batch (G's forward, D on reals and on fakes,
 # no backward) and of one FID fake batch (G's forward).
 VAL_LAUNCHES = {"pixel_norm": 2, "lrelu_pixel_norm": 13, "lrelu_pixel_norm_bwd": 0,
@@ -194,6 +239,15 @@ STEP_DRAWS = ((0, 0), (1, 0), (2, 0), (0, 5508))
 # format layer's, D's layers'): inputs within rounding of 0 that take the
 # other slope.
 WGANGP_DRAWS = ((0, 0),)
+# Phase 9's probe of the draw (0, 5508), where G's gradient differs about 6×
+# more than on the other draws, beside a usual draw: the f32 step on the
+# kernel path, the plain path, the plain path with D's leaky ReLUs forced to
+# the kernel path's side of 0 at every input, and with G's forced too; and
+# the gradient of torgb/PROBE_TORGB's weight (the 128² toRGB, where the
+# largest difference sits) split into its pixels' terms, with the flips
+# within PROBE_RADIUS pixels (at 128²) of the pixels that carry it.
+PROBE_DRAWS = ((0, 5508), (0, 0))
+PROBE_TORGB, PROBE_RADIUS, PROBE_TOP = SCALE - 1, 4, 8
 # Phase 11: the ragged shapes of phase 3, bias_lrelu_gain's (slope, gain)
 # pairs, the filtered_lrelu shapes (the two top blocks of the 256² model at
 # batch 16) and bias_act's activations.
@@ -276,8 +330,9 @@ def device_ms(fn, kernels=None, name=None, calls: int = 20, replays: int = 5,
     while capturing, so its launches are captured. Checks that the launch
     count of `name` moved once per captured call and not during the
     replays, and that the replayed graph wrote what the call computes
-    eagerly: the last captured output is set to NaN before the replays, so
-    a launch made outside the graph would leave it NaN."""
+    eagerly: the last captured output is set to NaN (an integer output to
+    the bitwise complement of the eager result) before the replays, so a
+    launch made outside the graph would leave it so."""
     want = fn()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -293,7 +348,10 @@ def device_ms(fn, kernels=None, name=None, calls: int = 20, replays: int = 5,
     if name:
         check(kernels.launches[name] - before == calls,
               f"{name}: {kernels.launches[name] - before} launches in a capture of {calls} calls")
-    out.fill_(float("nan"))
+    if out.is_floating_point():
+        out.fill_(float("nan"))
+    else:                               # every element differs from the eager result
+        out.copy_(torch.bitwise_not(want))
     for _ in range(3):
         graph.replay()
     best = float("inf")
@@ -888,16 +946,22 @@ def sign_flips(signs_a, signs_b):
     return flips
 
 
+def draw_inputs(cfg, gen):
+    """A step's uint8 batch and its two latent batches, in that order, from gen."""
+    batch = torch.randint(0, 256, (BATCH, RES, RES, 3), generator=gen, device=DEVICE,
+                          dtype=torch.uint8)
+    z1 = torch.randn((BATCH, int(cfg.latent_dim)), generator=gen, device=DEVICE)
+    z2 = torch.randn((BATCH, int(cfg.latent_dim)), generator=gen, device=DEVICE)
+    return batch, z1, z2
+
+
 def step_runs(step_mod, kernels, equalized, cfg, arrays_g, arrays_d, gen, labels,
               signs=None):
     """One step for each label of labels ("kernel", "plain", "kernel
     again"), each from the same state, batch and latents (drawn from gen).
     Returns {label: (losses, {net: Adam state in the JAX layout})}. With a
     dict `signs`, each label's leaky-ReLU input signs go to signs[label]."""
-    batch = torch.randint(0, 256, (BATCH, RES, RES, 3), generator=gen, device=DEVICE,
-                          dtype=torch.uint8)
-    z1 = torch.randn((BATCH, int(cfg.latent_dim)), generator=gen, device=DEVICE)
-    z2 = torch.randn((BATCH, int(cfg.latent_dim)), generator=gen, device=DEVICE)
+    batch, z1, z2 = draw_inputs(cfg, gen)
     step = step_mod.make_train_step(cfg, SCALE)
     runs = {}
     for label in labels:
@@ -987,6 +1051,169 @@ def compare_step(step_mod, kernels, equalized, cfg, arrays_g, arrays_d):
           f"vs plain: losses {loss_rel:.3g} "
           f"(rtol {STEP_LOSS_RTOL}), gradients {grad_rel:.3g} of the largest gradient of "
           f"each network ({STEP_GRAD_RTOL}); the kernel path twice bit for bit")
+
+
+@contextlib.contextmanager
+def forced_lrelu(kernels, signs, nets):
+    """Replay the leaky-ReLU calls of a run recorded by
+    `recording_lrelu_signs`: in call order, a call of a network in `nets`
+    ("G", "D") takes where(recorded x >= 0, x, slope·x) (G's epilogue then
+    pixel-normalises as the plain version does), the others run as they
+    are. Checks that the calls come in the recorded order."""
+    from pggan_tpu_torch.models import discriminator as d_mod, generator as g_mod
+    records = iter(signs)
+
+    def lrelu(x, mask, slope=0.2):
+        return torch.where(mask, x, x * slope)
+
+    def epilogue(x, mask, slope=0.2, eps=kernels.EPS):
+        z = lrelu(x.float(), mask, slope)
+        return (z * torch.rsqrt(z.square().mean(dim=1, keepdim=True) + eps)).to(x.dtype)
+
+    def replay(site, fn, forced):
+        def call(x, *args, **kwargs):
+            got, shape, mask = next(records)
+            check((got, shape) == (site, tuple(x.shape)),
+                  f"replayed call {site} {tuple(x.shape)}, recorded {got} {shape}")
+            if site.split()[0] in nets:
+                return forced(x, mask, *args, **kwargs)
+            return fn(x, *args, **kwargs)
+        return call
+    with mock.patch.object(kernels, "lrelu_pixel_norm", replay(
+            "G epilogue", kernels.lrelu_pixel_norm, epilogue)), \
+            mock.patch.object(g_mod, "leaky_relu", replay("G format", g_mod.leaky_relu, lrelu)), \
+            mock.patch.object(d_mod, "leaky_relu", replay("D", d_mod.leaky_relu, lrelu)):
+        yield
+
+
+def probe_run(step_mod, equalized, kernels, cfg, arrays_g, arrays_d, inputs, path, signs=None,
+              forced=None):
+    """One f32 step on `path` ("kernel" or "plain"), recording the leaky-ReLU
+    signs into `signs` or replaying `forced` = (signs, nets). Returns (G's
+    gradient in the JAX layout, {"x": the input of torgb/PROBE_TORGB in the
+    G phase, "g": the gradient at its output})."""
+    state = train_state(step_mod, cfg, arrays_g, arrays_d)
+    seen = {}
+
+    def hook(module, args, out):
+        if torch.is_grad_enabled() and out.requires_grad:           # the G phase
+            seen["x"] = args[0].detach()
+            out.register_hook(lambda g: seen.__setitem__("g", g.detach()))
+    handle = state.G.torgb[PROBE_TORGB].register_forward_hook(hook)
+    batch, z1, z2 = inputs
+    with contextlib.ExitStack() as stack:
+        if path == "plain":
+            stack.enter_context(plain_kernels(kernels))
+        if signs is not None:
+            stack.enter_context(recording_lrelu_signs(kernels, signs))
+        if forced is not None:
+            stack.enter_context(forced_lrelu(kernels, *forced))
+        step_mod.make_train_step(cfg, SCALE)(state, batch, ALPHA, z1=z1, z2=z2)
+    handle.remove()
+    grads = {k[len("0/mu/"):]: v for k, v in
+             equalized.adam_state_to_jax(state.opt_G, state.G).items() if k.startswith("0/mu/")}
+    return grads, seen
+
+
+def grad_rel(a, b):
+    """max |a - b| over the largest |b| across G's parameters, and where."""
+    largest = max(float(np.abs(v).max()) for v in b.values())
+    diff, where = max((float(np.abs(a[k] - b[k]).max()), k) for k in b)
+    return diff / largest, where
+
+
+def probe_step(step_mod, kernels, equalized, cfg, arrays_g, arrays_d):
+    """Phase 9's probe (PROBE_DRAWS): is the gradient difference of draw
+    (0, 5508) something the kernels compute differently, or rounding that
+    both paths share, carried by leaky-ReLU inputs that fall on the other
+    side of 0 or by a near-cancelling sum?"""
+    cfg = copy.deepcopy(cfg)
+    cfg["lr_D"] = 0.0
+    key = f"torgb/{PROBE_TORGB}/w"
+    torch.backends.cudnn.deterministic = True
+    try:
+        for seed, offset in PROBE_DRAWS:
+            gen = torch.Generator(device=DEVICE).manual_seed(seed)
+            if offset:
+                gen.set_offset(offset)
+            inputs = draw_inputs(cfg, gen)
+            signs, plain_signs = [], []
+            run = functools.partial(probe_run, step_mod, equalized, kernels, cfg, arrays_g,
+                                    arrays_d, inputs)
+            kernel, seen_k = run("kernel", signs=signs)
+            plain, seen_p = run("plain", signs=plain_signs)
+            forced_d, _ = run("plain", forced=(signs, ("D",)))
+            forced_all, _ = run("plain", forced=(signs, ("G", "D")))
+            rel = {name: grad_rel(kernel, other) for name, other in (
+                ("plain", plain), ("plain, D forced", forced_d),
+                ("plain, G and D forced", forced_all))}
+            print(f"[9 probe] draw (seed {seed}, offset {offset}), f32 TF32 off, deterministic "
+                  f"cuDNN, D held: G gradient max |diff| over the largest, kernel path vs "
+                  + "; vs ".join(f"{name} {r:.3g} ({where})" for name, (r, where) in rel.items()))
+            # the entries of the weight's gradient that differ most
+            w_k, w_p = kernel[key][0, 0], plain[key][0, 0]               # [Cin, Cout]
+            diff = np.abs(w_k - w_p)
+            top = np.dstack(np.unravel_index(np.argsort(diff, axis=None)[::-1][:3],
+                                             diff.shape))[0]
+            print(f"[9 probe]   {key}: largest |g| {np.abs(w_p).max():.4g}; entries (in, out) "
+                  f"that differ most: " + ", ".join(
+                      f"({i}, {o}) {w_k[i, o]:.6g} vs {w_p[i, o]:.6g}" for i, o in top))
+            # that entry's gradient, pixel by pixel: scale·x[b, i, h, w]·g[b, o, h, w]
+            i, o = (int(v) for v in top[0])
+            scale = float(arrays_g[key.replace("/w", "/scale")])
+            terms = {}
+            for name, seen in (("kernel", seen_k), ("plain", seen_p)):
+                x, g = seen["x"][:, i].double(), seen["g"][:, o].double()
+                terms[name] = (scale * x * g, x, g)
+            t_k, x_k, g_k = terms["kernel"]
+            t_p, x_p, g_p = terms["plain"]
+            d = (t_k - t_p).flatten()
+            order = torch.argsort(d.abs(), descending=True)
+            total = float(d.sum())
+            shares = {n: float(d[order[:n]].sum()) / total for n in (1, 10, 100, 1000)}
+            fwd = float((scale * (x_k - x_p) * g_p).sum())
+            bwd = float((scale * x_k * (g_k - g_p)).sum())
+            print(f"[9 probe]   ({i}, {o}): sum of the pixel terms {float(t_k.sum()):.6g} "
+                  f"(Adam mu {w_k[i, o]:.6g}); sum of |terms| / |sum| = "
+                  f"{float(t_p.abs().sum()) / abs(float(t_p.sum())):.4g}; the difference "
+                  f"{total:.4g} = forward part (x differs) {fwd:.4g} + backward part (g "
+                  f"differs) {bwd:.4g}; share of it in the 1, 10, 100, 1000 pixels that carry "
+                  f"most: " + ", ".join(f"{v:.3f}" for v in shares.values()))
+            # flips near the pixels that carry it: D's calls after G's last
+            # (the G phase, D on G(z2)'s fakes) and G's 128² epilogues in G(z2)
+            last_g = max(n for n, (site, _, _) in enumerate(signs) if site.startswith("G"))
+            first_g2 = max(n for n, (site, _, _) in enumerate(signs[:last_g])
+                           if not site.startswith("G")) + 1
+            flips = []
+            for n, ((site, shape, a), (_, _, b)) in enumerate(zip(signs, plain_signs)):
+                if len(shape) == 4 and (n > last_g or (n >= first_g2 and site == "G epilogue")):
+                    where = torch.nonzero(a != b)
+                    if len(where):
+                        flips.append((site, shape[2], where))
+            rows = []
+            side = x_k.shape[-1]
+            for flat in order[:PROBE_TOP].tolist():
+                b0, h0, w0 = np.unravel_index(flat, tuple(t_k.shape))
+                near = collections.Counter()
+                for site, res, where in flips:
+                    same = where[where[:, 0] == b0]
+                    hh = (same[:, 2].double() + 0.5) * side / res
+                    ww = (same[:, 3].double() + 0.5) * side / res
+                    close = ((hh - h0).abs() <= PROBE_RADIUS + side / res / 2) & (
+                        (ww - w0).abs() <= PROBE_RADIUS + side / res / 2)
+                    if int(close.sum()):
+                        near[f"{site.split()[0]}@{res}"] += int(close.sum())
+                rows.append(f"(b {b0}, h {h0}, w {w0}) {float(d[flat]) / total:+.3f} of it, "
+                            f"x {float(x_k[b0, h0, w0]):.4g} g {float(g_k[b0, h0, w0]):.4g}, "
+                            f"flips {dict(near) or 0}")
+            n_flips = sum(len(w) for *_, w in flips)
+            print(f"[9 probe]   the {PROBE_TOP} pixels that carry most (share of the "
+                  f"difference, the kernel path's x and g, flips of the G phase within "
+                  f"{PROBE_RADIUS} px at {side}² in the same sample, by network@resolution; "
+                  f"{n_flips} flips in the G phase in all): " + "; ".join(rows))
+            del signs, plain_signs
+    finally:
+        torch.backends.cudnn.deterministic = False
 
 
 def time_train(step_mod, kernels, cfg, arrays_g, arrays_d, gen, card):
@@ -1582,7 +1809,7 @@ def run_eval_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card):
         end += 1
     run_keys = dict(keys, save_root=tmp, data_backend="folder", dataset_root_list=[images],
                     batch_per_gpu=BATCH, num_data_workers=8, prefetch_depth=2, loss_cycle=2,
-                    test_cycle=EVAL_TEST_CYCLE, fid_cycle=EVAL_FID_CYCLE, ckpt_cycle=10000)
+                    test_cycle=EVAL_TEST_CYCLE, fid_cycle=EVAL_FID_CYCLE, ckpt_cycle=NEVER)
     configs = {}
     for name, over in (("eval", {}), ("noeval", {"use_validation": False, "fid_cycle": 0})):
         configs[name] = os.path.join(tmp, f"{name}.yaml")
@@ -1656,6 +1883,13 @@ def run_eval_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card):
     check(rc == 0, f"train main returned {rc}")
     check(run_cfg["compute_dtype"] == "bfloat16" and run_cfg["g_ema_decay"] == 0.999
           and run_cfg["fid_samples"] == keys["fid_samples"], f"the run's config {run_cfg}")
+    # 96 images of 256² are 18.9 MB, within device_cache_mb: 'auto' turns it on
+    cache_lines = [line for line in lines if "device data cache:" in line]
+    print(f"[13 eval] {EVAL_CONFIG}'s device_data_cache: {keys['device_data_cache']!r} "
+          f"(device_cache_mb {keys['device_cache_mb']}) turned the cache "
+          f"{'on: ' + cache_lines[0] if cache_lines else 'off'}")
+    check(keys["device_data_cache"] == "auto" and len(cache_lines) == 1,
+          f"expected 'auto' to turn the device data cache on once, got {cache_lines}")
     trainer = seen["trainer"]
     steps = end - start
     check(len(batches) == steps + len(val_launches), f"{len(batches)} batches")
@@ -1814,6 +2048,372 @@ def run_eval_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card):
     print(f"[13 eval] phase 13 took {time.perf_counter() - t_phase:.2f} s")
 
 
+# ---- phase 14: the device data cache on the training path ------------------
+
+@contextlib.contextmanager
+def recording_assembles(calls):
+    """Append the (indices, seeds) of every `DeviceDataCache.assemble` call to
+    `calls`, in order (the producer thread assembles in stream order)."""
+    from pggan_tpu_torch.data.device_cache import DeviceDataCache
+    assemble = DeviceDataCache.assemble
+
+    def recording(self, idxs, seeds):
+        calls.append((np.array(idxs), np.array(seeds)))
+        return assemble(self, idxs, seeds)
+    with mock.patch.object(DeviceDataCache, "assemble", recording):
+        yield
+
+
+def time_assembly(images, card, bf16_step_ms):
+    """The cache alone at 256², batch 16, augmented: `assemble` calls back to
+    back (host draws and copies included; host clock, one sync), the torch
+    ops of `assemble_batch` alone (device time, a CUDA graph), and the
+    pipeline with the cache delivering batches. Returns img/s of the calls."""
+    from pggan_tpu_torch.data.dataset import ImageFolderDataset, split_dataset
+    from pggan_tpu_torch.data.device_cache import DeviceDataCache, assemble_batch
+    from pggan_tpu_torch.data.pipeline import DataPipeline
+
+    dataset = ImageFolderDataset([images], SCALE)
+    cache = DeviceDataCache(dataset, DEVICE)
+    rs = np.random.RandomState(0)
+    draws = [(rs.randint(0, cache.n_images, BATCH), rs.randint(0, 2 ** 31 - 1, BATCH))
+             for _ in range(ASSEMBLE_BATCHES)]
+    for idxs, seeds in draws[:3]:
+        cache.assemble(idxs, seeds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for idxs, seeds in draws:
+        batch = cache.assemble(idxs, seeds)
+    torch.cuda.synchronize()
+    call_rate = ASSEMBLE_BATCHES * BATCH / (time.perf_counter() - t0)
+    check(batch.dtype == torch.uint8 and tuple(batch.shape) == (BATCH, RES, RES, 3), "batch")
+    params = [t.to(DEVICE) for t in (torch.from_numpy(draws[0][0] % cache.n_images),
+                                      torch.tensor([1, 0] * (BATCH // 2), dtype=torch.int32),
+                                      torch.tensor([[1.1, 0.9, 1.2, 0.005]] * BATCH),
+                                      torch.tensor([[3, 1, 0, 2]] * BATCH, dtype=torch.int32))]
+    op_ms = device_ms(lambda: assemble_batch(cache.data, *params), calls=5)
+    tail_ms = bf16_step_ms[False]
+    indices, _ = split_dataset(len(dataset))
+    with DataPipeline(dataset, BATCH, indices=indices, num_workers=8, prefetch_depth=2, seed=0,
+                      device=DEVICE, assemble_fn=cache.assemble) as pipe:
+        for _ in range(3):
+            next(pipe)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PIPELINE_BATCHES):
+            next(pipe)
+        torch.cuda.synchronize()
+        pipe_rate = PIPELINE_BATCHES * BATCH / (time.perf_counter() - t0)
+    print(f"[14 rates] device data cache ({cache.n_images} images, {cache.nbytes / 1e6:.1f} MB "
+          f"on the card), {RES}x{RES}, batch {BATCH}, augmented: assemble() back to back "
+          f"{call_rate:.1f} img/s (parameter draws and copies included, host clock); "
+          f"assemble_batch's torch ops alone {op_ms:.4f} ms a batch = "
+          f"{BATCH / op_ms * 1e3:.1f} img/s (device time, CUDA graph) = "
+          f"{100 * op_ms / tail_ms:.2f} % of the bf16 step without R1 ({tail_ms:.2f} ms, "
+          f"phase 10); the pipeline with the cache {pipe_rate:.1f} img/s over "
+          f"{PIPELINE_BATCHES} batches ({card})")
+    return call_rate
+
+
+def run_cache_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card, bf16_step_ms):
+    """Phase 14: `device_data_cache: true` through `pggan_tpu_torch.train.main`
+    from phase 12's folder: the batches against the host pipeline's (byte
+    for byte unaugmented; augmented against the same assembly on the CPU),
+    the launches, SIGTERM and the resume, the assembly's rates and the
+    lazy-R1/16 window's imgs_per_sec with the cache, the host pipeline and
+    synthetic data."""
+    from pggan_tpu_torch.data.dataset import ImageFolderDataset
+    from pggan_tpu_torch.data.device_cache import DeviceDataCache
+
+    t_phase = time.perf_counter()
+    _, _, _, start = train_checkpoint(ckpt_lib, cfg, depths, tmp)
+    images = os.path.join(tmp, "images")
+    write_image_folder(images)
+    # cycles beyond the runs; a value equal to its default would not count as
+    # set and the checkpoint's (ckpt_cycle 2) would win on resume
+    base = {"save_root": tmp, "data_backend": "folder", "dataset_root_list": [images],
+            "batch_per_gpu": BATCH, "num_data_workers": 8, "prefetch_depth": 2,
+            "loss_cycle": 2, "test_cycle": NEVER, "ckpt_cycle": NEVER}
+
+    def run(name, steps, over, *extra, ckpt_id="smoke_init", hook=None, end=None):
+        config = os.path.join(tmp, f"{name}.yaml")
+        with open(config, "w") as f:                # JSON is YAML
+            json.dump(dict(base, **over), f)
+        end = start + steps if end is None else end
+        return folder_run(train_mod, kernels, [
+            name, "--config", config, "--ckpt_id", ckpt_id, "--max_step", str(end),
+            "--compute_dtype", "bfloat16", "--device", DEVICE, *extra], hook)
+
+    def cache_line(lines):
+        found = [line for line in lines if "device data cache:" in line]
+        check(len(found) == 1 and f"{FOLDER_IMAGES} images" in found[0],
+              f"device data cache lines {found}")
+        return found[0]
+
+    def check_batches(batches, n):
+        check(len(batches) == n, f"{len(batches)} batches reached the step")
+        for b in batches:
+            check(b.dtype == torch.uint8 and tuple(b.shape) == (BATCH, RES, RES, 3)
+                  and b.device.type == torch.device(DEVICE).type,
+                  f"batch {b.dtype} {tuple(b.shape)} {b.device}")
+
+    # unaugmented: the cache's batches are the host pipeline's
+    rc, cached, _, lines, launches, seconds = run("cache_plain", CACHE_STEPS,
+                                                  {"device_data_cache": True, "augment": False})
+    check(rc == 0, f"the cache run returned {rc}")
+    line = cache_line(lines)
+    check_batches(cached, CACHE_STEPS)
+    want = {k: n * CACHE_STEPS for k, n in STEP_LAUNCHES.items()}
+    check(launches == want, f"launches {launches}, expected {want}")
+    rc, hosted, _, lines, _, _ = run("host_plain", CACHE_STEPS, {"augment": False})
+    check(rc == 0 and not any("device data cache:" in x for x in lines), f"host run {rc}")
+    check(all(torch.equal(a, b) for a, b in zip(cached, hosted)),
+          "unaugmented cache batches differ from the host pipeline's")
+    print(f"[14 cache] pggan_tpu_torch.train.main with device_data_cache: true, augment: false, "
+          f"{CACHE_STEPS} bf16 r1 steps at {RES}x{RES}, batch {BATCH}, from the scale-{SCALE} "
+          f"checkpoint at step {start} in {seconds:.2f} s: {line!r}; every batch uint8 "
+          f"[{BATCH},{RES},{RES},3] on {cached[0].device}, equal byte for byte to the host "
+          f"pipeline's; launches {launches} = {CACHE_STEPS} steps x phase 8's")
+
+    # augmented: the card's assembly against the CPU's and against the PIL path
+    calls = []
+    with recording_assembles(calls):
+        rc, batches, _, lines, _, _ = run("cache_aug", FOLDER_STEPS, {"device_data_cache": True})
+    check(rc == 0, f"the augmented cache run returned {rc}")
+    cache_line(lines)
+    check_batches(batches, FOLDER_STEPS)
+    dataset = ImageFolderDataset([images], SCALE)
+    on_cpu = DeviceDataCache(dataset, "cpu")
+    worst, mean, pil_worst, pil_mean = 0, 0.0, 0, 0.0
+    for batch, (idxs, seeds) in zip(batches, calls):
+        got = batch.cpu().numpy().astype(int)
+        want = on_cpu.assemble(idxs, seeds).numpy().astype(int)
+        pil = np.stack([dataset.get(int(i), np.random.RandomState(int(s)))
+                        for i, s in zip(idxs, seeds)]).astype(int)
+        worst, mean = max(worst, int(np.abs(got - want).max())), mean + np.abs(got - want).mean()
+        pil_worst = max(pil_worst, int(np.abs(got - pil).max()))
+        pil_mean += np.abs(got - pil).mean()
+    mean, pil_mean = mean / len(batches), pil_mean / len(batches)
+    check(worst <= ASSEMBLE_LSB and mean < ASSEMBLE_MEAN,
+          f"augmented batches on the card vs the CPU's assembly: max {worst}, mean {mean:.4g}")
+    print(f"[14 cache] augmented, {FOLDER_STEPS} steps: the card's batches against the same "
+          f"draws assembled on the CPU max |diff| {worst} (bound {ASSEMBLE_LSB}), mean "
+          f"{mean:.4g} (bound {ASSEMBLE_MEAN}); against the PIL path's max {pil_worst}, mean "
+          f"{pil_mean:.4g} (8-bit rounding between its ops; not bounded)")
+
+    # SIGTERM after a step, then the resume, with the cache
+    cut = start + SIGTERM_AFTER
+
+    def sigterm(trainer):
+        if trainer.global_step == cut:
+            os.kill(os.getpid(), signal.SIGTERM)
+    handler = signal.getsignal(signal.SIGTERM)
+    rc, _, _, lines, _, _ = run("cut_cache", FOLDER_STEPS, {"device_data_cache": True},
+                                hook=sigterm)
+    check(rc == 0 and signal.getsignal(signal.SIGTERM) is handler
+          and any(f"interrupted at step {cut + 1}" in x for x in lines),
+          f"the interrupted run returned {rc}")
+    rc, resumed, _, lines, _, _ = run("cut_cache", 0, {"device_data_cache": True},
+                                      ckpt_id="cut_cache", end=cut + 3)
+    check(rc == 0 and any(f"checkpoint cut_cache@{cut + 1} restored" in x for x in lines),
+          f"the resumed run returned {rc}")
+    cache_line(lines)
+    check(torch.equal(resumed[0], batches[SIGTERM_AFTER + 1]),
+          "the resume's first batch differs from the uninterrupted run's")
+    print(f"[14 sigterm] SIGTERM after step {cut} with the cache: checkpoint at {cut + 1}, clean "
+          f"return; the resume rebuilt the cache, started at {cut + 1}, and its first batch "
+          f"equals the uninterrupted run's at {cut + 1} byte for byte")
+
+    call_rate = time_assembly(images, card, bf16_step_ms)
+
+    # lazy R1/16: loss lines every LAZY_R1 steps, imgs_per_sec between them
+    first = -(-start // LAZY_R1) * LAZY_R1
+    end = first + LAZY_R1 * LAZY_WINDOWS + 1
+    lazy = {"r1_interval": LAZY_R1, "loss_cycle": LAZY_R1}
+    rates = {}
+    for name, over, extra in (("lazy_cache", {"device_data_cache": True}, ()),
+                              ("lazy_host", {}, ()),
+                              ("lazy_synthetic", {}, ("--data_backend", "synthetic"))):
+        rc, _, _, _, _, _ = run(name, 0, dict(lazy, **over), *extra, end=end)
+        check(rc == 0, f"{name} returned {rc}")
+        with open(os.path.join(tmp, name, "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        check([m["step"] for m in lines] == list(range(first, end, LAZY_R1)),
+              f"{name}: loss lines at {[m['step'] for m in lines]}")
+        # the first line's rate counts from fit()'s start: left out
+        rates[name] = [m["imgs_per_sec"] for m in lines[1:]]
+    synth = np.mean(rates["lazy_synthetic"])
+    print(f"[14 rates] card: {card}")
+    print(f"[14 rates] lazy R1/{LAZY_R1} (r1_interval {LAZY_R1}, a loss line every {LAZY_R1} "
+          f"steps: per span one logged R1 step and a window of {LAZY_R1 - 1} led by R1), bf16, "
+          f"{RES}x{RES}, batch {BATCH}, trainer imgs_per_sec over steps {first}-{end - 1}: "
+          + "; ".join(f"{name[5:]} {r} (mean {np.mean(r):.1f} = "
+                      f"{100 * (np.mean(r) / synth - 1):+.1f} % of synthetic)"
+                      for name, r in rates.items()))
+    tail = BATCH / bf16_step_ms[False] * 1e3
+    print(f"[14 rates] the cache keeps up with the bf16 step without R1 ({tail:.1f} img/s, "
+          f"phase 10): {'yes' if call_rate >= tail else 'no'} ({call_rate / tail:.2f}x)")
+    print(f"[14 cache] phase 14 took {time.perf_counter() - t_phase:.2f} s")
+
+
+# ---- phase 15: the serving artifact ------------------------------------------
+
+SERVE_CHILD = """
+import json, sys, time
+import numpy as np, torch
+sys.path.insert(0, {repo!r})
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from pggan_tpu_torch.ops import kernels
+t0 = time.perf_counter()
+module = torch.export.load({path!r}).module()
+load_s = time.perf_counter() - t0
+launches, out = {{}}, {{}}
+for b in {batches!r}:
+    z = torch.from_numpy(np.random.RandomState(b).randn(b, {latent}).astype(np.float32))
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        out[f"b{{b}}"] = module(z.to({device!r})).cpu().numpy()
+    launches[b] = {{k: v for k, v in kernels.launches.items() if v}}
+np.savez({result!r}, **out)
+print(json.dumps({{"load_s": load_s, "launches": launches}}))
+"""
+
+
+def artifact_launches(kernels, forward):
+    """forward()'s output and the kernel launches it made."""
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        y = forward()
+    torch.cuda.synchronize()
+    return y, {k: v for k, v in kernels.launches.items() if v}
+
+
+def run_serving(demo, kernels, cfg, depths, tmp, card):
+    """Phase 15: `pggan_tpu_torch.demo --export` on phase 4's checkpoint, the
+    artifact served in a fresh process at several batches against the eager
+    G, in bf16 in process, exported on the CPU and served on the card, and
+    tools/bench_serving_torch.py in both modes."""
+    from pggan_tpu_torch import export as export_mod
+    from pggan_tpu_torch.utils import checkpoint as ckpt_lib
+
+    t_phase = time.perf_counter()
+    latent = int(cfg.latent_dim)
+    arrays = numpy_generator_arrays(1234, latent, depths, SCALE)
+    ckpt_lib.save_checkpoint(tmp, "smoke", "G", 0, params=arrays, meta={
+        "args": cfg.to_dict(), "schedule": {"scale_index": SCALE, "alpha": ALPHA}})
+    path = os.path.join(tmp, "g.pt2")
+    forward = SERVE_LAUNCHES
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = demo.main(["--ckpt_id", "smoke", "--save_root", tmp, "--device", DEVICE,
+                        "--n_samples", str(BATCH), "--batch_size", str(BATCH),
+                        "--output_dir", os.path.join(tmp, "samples"), "--export", path])
+    torch.cuda.synchronize()
+    demo_s = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    check(rc == 0 and os.path.exists(path), f"demo --export returned {rc}")
+    check(launches == forward, f"demo --export launches {launches}: expected one forward's "
+                               f"{forward} (tracing the export launches nothing)")
+    size_mb = os.path.getsize(path) / 1e6
+    print(f"[15 export] python -m pggan_tpu_torch.demo --export: "
+          f"{' | '.join(out.getvalue().strip().splitlines())}; "
+          f"{size_mb:.2f} MB; the demo with the export and {BATCH} samples took {demo_s:.2f} s; "
+          f"launches {launches} (the sampling forward only)")
+
+    # the artifact in a fresh process, against the eager G (f32, TF32 off)
+    generator, _, _, alpha = demo.load_generator(tmp, "smoke", device=DEVICE)
+    result = os.path.join(tmp, "served.npz")
+    child = SERVE_CHILD.format(repo=REPO, path=path, batches=SERVE_BATCHES, latent=latent,
+                               device=DEVICE, result=result)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True,
+                          timeout=600)
+    child_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the serving process failed: {proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    served = np.load(result)
+    errs = {}
+    for b in SERVE_BATCHES:
+        z = torch.from_numpy(np.random.RandomState(b).randn(b, latent).astype(np.float32))
+        with torch.no_grad():
+            want = generator(z.to(DEVICE), alpha).cpu().numpy()
+        got = served[f"b{b}"]
+        check(got.shape == (b, RES, RES, 3) and np.isfinite(got).all(), f"batch {b}: {got.shape}")
+        errs[b] = float(np.abs(got - want).max())
+        check(errs[b] <= SERVE_ATOL, f"batch {b}: artifact vs eager max |diff| {errs[b]:.3g}")
+        check(report["launches"][str(b)] == forward,
+              f"batch {b}: launches {report['launches'][str(b)]}, expected {forward}")
+    print(f"[15 serve] a fresh process (importing pggan_tpu_torch.ops.kernels only) loaded the "
+          f"artifact in {report['load_s']:.2f} s and sampled batches {list(SERVE_BATCHES)} "
+          f"({child_s:.1f} s with its start); f32 TF32 off against the eager G: max |diff| "
+          + ", ".join(f"b{b} {e:.3g}" for b, e in errs.items())
+          + f" (bound {SERVE_ATOL}); launches per forward {report['launches']} ({card})")
+
+    # in process: the f32 artifact's launches, the bf16 artifact against the eager bf16 G
+    z = torch.from_numpy(np.random.RandomState(7).randn(BATCH, latent).astype(np.float32))
+    z = z.to(DEVICE)
+    _, f32_launches = artifact_launches(
+        kernels, functools.partial(export_mod.load_exported(path).module(), z))
+    check(f32_launches == forward, f"f32 artifact launches {f32_launches}")
+    blob = export_mod.export_generator(generator, latent_dim=latent, alpha=alpha,
+                                       compute_dtype=torch.bfloat16, device=DEVICE)
+    bf16_module = functools.partial(export_mod.load_exported(blob).module(), z)
+    got, bf16_launches = artifact_launches(kernels, bf16_module)
+    with torch.no_grad():
+        want = generator(z, alpha, compute_dtype=torch.bfloat16)
+    check(got.dtype == torch.bfloat16 and bf16_launches == forward,
+          f"bf16 artifact {got.dtype}, launches {bf16_launches}")
+    gf, wf = got.float(), want.float()
+    ulp = torch.finfo(torch.bfloat16).eps * torch.maximum(gf.abs(), wf.abs())
+    bf16_err = float((gf - wf).abs().max())
+    check(bool(((gf - wf).abs() <= ulp).all()), f"bf16 artifact vs eager: max |diff| {bf16_err}")
+    print(f"[15 serve] bf16 artifact (exported in process) vs the eager bf16 G, batch {BATCH}: "
+          f"max |diff| {bf16_err:.3g}, within one bf16 step everywhere; launches per forward "
+          f"{bf16_launches} (f32 artifact {f32_launches})")
+    with torch.no_grad():
+        direct_ms, artifact_ms = abba_ms(
+            lambda: generator(z, alpha, compute_dtype=torch.bfloat16), bf16_module)
+    print(f"[15 serve] the same process, bf16, batch {BATCH}, in (direct, artifact, artifact, "
+          f"direct) turns: eager G {direct_ms:.3f} ms = {BATCH / direct_ms * 1e3:.1f} img/s, "
+          f"artifact {artifact_ms:.3f} ms = {BATCH / artifact_ms * 1e3:.1f} img/s "
+          f"({direct_ms / artifact_ms:.3f}x; CUDA events over 20 calls each) ({card})")
+
+    # exported on the CPU, served on the card
+    t0 = time.perf_counter()
+    cpu_blob = export_mod.export_generator(arrays, latent_dim=latent, alpha=alpha, device="cpu")
+    cpu_export_s = time.perf_counter() - t0
+    moved = export_mod.load_exported(cpu_blob, device=DEVICE)
+    got, moved_launches = artifact_launches(kernels, functools.partial(moved.module(), z))
+    with torch.no_grad():
+        want = generator(z, alpha)
+    moved_err = float((got - want).abs().max())
+    check(got.device.type == torch.device(DEVICE).type and moved_launches == forward
+          and moved_err <= SERVE_ATOL, f"the CPU-exported artifact on the card: {got.device}, "
+                                       f"launches {moved_launches}, max |diff| {moved_err:.3g}")
+    print(f"[15 serve] exported on the CPU in {cpu_export_s:.2f} s, moved to the card by "
+          f"load_exported(device={DEVICE!r}): max |diff| {moved_err:.3g} against the eager G "
+          f"(bound {SERVE_ATOL}), launches {moved_launches}")
+
+    # the serving bench, both modes
+    rows = {}
+    for mode in ("direct", "artifact"):
+        proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", "bench_serving_torch.py"),
+                               "--mode", mode, "--scale", str(SCALE), "--batch", str(BATCH),
+                               "--compute_dtype", "bfloat16"],
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"bench_serving_torch --mode {mode}: {proc.stderr[-3000:]}")
+        rows[mode] = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(rows[mode]["launches_per_forward"] == forward, f"{mode}: {rows[mode]}")
+        print(f"[15 bench] {json.dumps(rows[mode])}")
+    ratio = rows["artifact"]["value"] / rows["direct"]["value"]
+    print(f"[15 bench] artifact / direct device img/s {ratio:.3f}, e2e "
+          f"{rows['artifact']['e2e_img_s'] / rows['direct']['e2e_img_s']:.3f} ({card})")
+    print(f"[15 export] phase 15 took {time.perf_counter() - t_phase:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1887,6 +2487,7 @@ def main() -> int:
     step_cfg = Config(args)
     step_cfg["compute_dtype"] = "float32"
     compare_step(step_mod, kernels, equalized, step_cfg, arrays_g, arrays_d)
+    probe_step(step_mod, kernels, equalized, step_cfg, arrays_g, arrays_d)
     print(f"[10 times] card: {card}")
     bf16_step_ms = time_train(step_mod, kernels, step_cfg, arrays_g, arrays_d, gen, card)
     train_times, _ = time_train_kernels(kernels, gen, card)
@@ -1908,6 +2509,14 @@ def main() -> int:
     # ---- validation, FID and KID on the training path ----
     with tempfile.TemporaryDirectory(prefix="pggan_smoke_eval_") as tmp:
         run_eval_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card)
+
+    # ---- the device data cache on the training path ----
+    with tempfile.TemporaryDirectory(prefix="pggan_smoke_cache_") as tmp:
+        run_cache_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card, bf16_step_ms)
+
+    # ---- the serving artifact ----
+    with tempfile.TemporaryDirectory(prefix="pggan_smoke_serve_") as tmp:
+        run_serving(demo, kernels, cfg, depths, tmp, card)
 
     # Every kernel of the three paths at its largest f32 shape on them;
     # `launches` is the training run's count (the demo's is checked in

@@ -88,12 +88,18 @@ _DEFAULTS: Dict[str, Any] = {
     "decode_cache_mb": 8192,
     "resized_store": "auto",          # 'auto' | True | False
     "resized_store_dir": None,        # None → '<save_root>/resized_store'
-    # JAX package only: the device-resident data cache, XLA options,
-    # chunked dispatch, rematerialization and packed top levels
-    "device_data_cache": False,
+    # device-resident dataset cache (`data/device_cache.py`): upload the
+    # resized-at-scale images to the card once per scale and assemble the
+    # batches there — per-step host->device traffic drops from megabytes of
+    # pixels to bytes of indices, and the host decodes and jitters nothing in
+    # the step loop. 'auto' enables it when the dataset fits
+    # `device_cache_mb` and one process feeds one card.
+    "device_data_cache": False,       # 'auto' | True | False
     "device_cache_mb": 256,
     # per-scale batch override: {scale_index: batch}; None → batch_per_gpu
     "batch_schedule": None,
+    # JAX package only: XLA options, chunked dispatch, rematerialization and
+    # packed top levels
     "donate_buffers": True,
     "compiler_options": None,
     "steps_per_dispatch": 1,
@@ -110,6 +116,14 @@ _DEFAULTS: Dict[str, Any] = {
     # G weight average (PGGAN paper §A.1); 0.0 = off
     "g_ema_decay": 0.0,
 }
+
+
+def default_depths(max_scale: int) -> list:
+    """The reference's depth law (configs.yaml's depths generalised;
+    `pggan_tpu/config.py:180-189`): 512 through scale 3, then halved each
+    scale, floored at 16, with at least the reference's 7 entries."""
+    return [512 if s <= 3 else max(16, 512 >> (s - 3))
+            for s in range(max(max_scale + 1, 7))]
 
 
 class Config(dict):

@@ -11,7 +11,10 @@
     round-robin shards of that shared permutation;
   * `start_batch` fast-forwards both random streams without loading an
     image, so a resumed run continues the stream where the interrupted one
-    stopped.
+    stopped;
+  * with `assemble_fn` (the device cache, `data/device_cache.py`) the
+    producer hands each batch's (indices, seeds) to it instead of the
+    workers: the same draws, so the same stream, assembled on the card.
 
 The index and seed draws are the JAX package's, number for number, so both
 packages feed a step the same images.
@@ -35,11 +38,22 @@ class DataPipeline:
                  indices: Optional[Sequence[int]] = None,
                  num_workers: int = 8, prefetch_depth: int = 2,
                  seed: int = 42, rank: int = 0, num_replicas: int = 1,
-                 start_batch: int = 0, device="cpu"):
+                 start_batch: int = 0, device="cpu", assemble_fn=None):
         """`batch_size` is this rank's batch. The permutation stream is
         seeded by `seed` on every rank, so the ranks' shards are disjoint
         pieces of one epoch; the augmentation stream by
-        seed + 1 + 1_000_003·rank, so no two ranks jitter alike."""
+        seed + 1 + 1_000_003·rank, so no two ranks jitter alike.
+
+        `assemble_fn(idxs, seeds)`, when given, makes each batch from the
+        drawn dataset indices and augmentation seeds, on the producer
+        thread, in place of the workers' decode and `_to_device`
+        (`pggan_tpu/data/pipeline.py:169-177`). It launches on that
+        thread's current stream: with `DeviceDataCache.assemble`, the
+        default stream of the card, which the train step runs on too (PyTorch
+        gives every thread the legacy default stream unless it sets
+        another), so CUDA orders the assembly before every kernel that reads
+        the batch, and the batch's memory is allocated and freed on the
+        step's stream."""
         if not 0 <= int(rank) < int(num_replicas):
             raise ValueError(f"rank {rank} outside [0, {num_replicas})")
         self.dataset = dataset
@@ -57,6 +71,7 @@ class DataPipeline:
         self.seed = int(seed)
         self.start_batch = max(0, int(start_batch))
         self.device = torch.device(device)
+        self.assemble_fn = assemble_fn
         self._queue: queue.Queue = queue.Queue(maxsize=self.prefetch_depth)
         self._stop = threading.Event()
         self._pool = ThreadPoolExecutor(max_workers=self.num_workers,
@@ -110,10 +125,13 @@ class DataPipeline:
                 skip -= 1
                 continue
             try:
-                futures = [self._pool.submit(self.dataset.get, int(i),
-                                             np.random.RandomState(int(s)))
-                           for i, s in zip(idxs, seeds)]
-                batch = self._to_device(np.stack([f.result() for f in futures]))
+                if self.assemble_fn is not None:
+                    batch = self.assemble_fn(idxs, seeds)
+                else:
+                    futures = [self._pool.submit(self.dataset.get, int(i),
+                                                 np.random.RandomState(int(s)))
+                               for i, s in zip(idxs, seeds)]
+                    batch = self._to_device(np.stack([f.result() for f in futures]))
             except Exception as exc:    # handed to the consumer, raised there
                 if not self._stop.is_set():     # else close() cut the batch
                     self._enqueue(exc)

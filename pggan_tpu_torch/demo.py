@@ -6,7 +6,11 @@ forward pass, denormalises ×0.5+0.5 → [0, 255] and writes result_{i}.jpg.
 
     python -m pggan_tpu_torch.demo --ckpt_id my_run [--ckpt_step 30000]
         [--n_samples 16] [--batch_size 16] [--seed 0] [--output_dir DIR]
-        [--ema] [--device cuda]
+        [--ema] [--export PATH] [--device cuda]
+
+`--export PATH` also writes the loaded generator as a `torch.export`
+serving artifact (f32, the checkpoint's alpha, any batch size;
+`pggan_tpu_torch.export.sample` serves it), then samples as without it.
 
 Latents come from a `torch.Generator` seeded with --seed, so the same seed
 gives other images than the JAX demo, whose latents come from jax.random.
@@ -63,22 +67,26 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--output_dir", default=None)
     parser.add_argument("--export", default=None, metavar="PATH",
-                        help="not ported yet (see ROADMAP.md, queue 1)")
+                        help="also write a torch.export serving artifact (.pt2) of the "
+                             "loaded generator, batch symbolic (pggan_tpu_torch.export)")
     parser.add_argument("--ema", action="store_true",
                         help="sample from the smoothed generator (Gema checkpoint)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to sample on (default: cuda)")
     ns = parser.parse_args(argv)
-    if ns.export:
-        raise NotImplementedError(
-            "--export (a serving artifact) is not ported to pggan_tpu_torch "
-            "yet; it is queued in ROADMAP.md as a torch.export artifact")
 
     device = torch.device(ns.device)
     generator, args, scale, alpha = load_generator(
         ns.save_root, ns.ckpt_id, ns.ckpt_step, ema=ns.ema, device=device)
     out_dir = ns.output_dir or os.path.join(ns.save_root, ns.ckpt_id, "samples")
     os.makedirs(out_dir, exist_ok=True)
+
+    if ns.export:
+        from pggan_tpu_torch.export import export_generator
+        # G carries the checkpoint's slope, pixel norm and last activation
+        export_generator(generator, latent_dim=int(args.latent_dim), alpha=alpha,
+                         path=ns.export, device=device)
+        print(f"wrote serving artifact (scale {scale}, alpha {alpha}) to {ns.export}")
 
     rng = torch.Generator(device=device).manual_seed(ns.seed)
     written = 0

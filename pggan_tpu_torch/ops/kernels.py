@@ -13,6 +13,10 @@ their autograd rules and the launch counters — the counterpart of
 The device decides the path: on a CPU tensor a wrapper runs the plain
 version; on a CUDA tensor it launches the kernel or raises. It never copies
 its input into another layout and never falls back to the plain version.
+While `torch.export` traces a program, `pixel_norm` and `lrelu_pixel_norm`
+call the registered operators `pggan::pixel_norm` and
+`pggan::lrelu_pixel_norm` instead, which run the same forwards when the
+exported program runs (`pggan_tpu_torch/export.py`).
 
 Differentiation follows the JAX package. `pixel_norm`,
 `minibatch_stddev_stat` and `bias_lrelu_gain` are `custom_jvp`s there, so
@@ -442,8 +446,44 @@ class _BiasLreluGain(torch.autograd.Function):
         return dx.to(x.dtype), db, None, None, None
 
 
+# ---------------------------------------------------------------------------
+# export-time operators
+# ---------------------------------------------------------------------------
+# `torch.export` traces with fake tensors, which have no memory for the ctypes
+# launch to point at. While a program is exported, the two forward wrappers
+# call these registered operators instead; each stays one node of the
+# exported graph, and running the graph calls the same forward as the eager
+# wrapper: the kernel (counted in `launches`) on a CUDA tensor, the plain
+# version on a CPU tensor. Loading an exported program needs them registered,
+# that is this module imported. Their fake implementations keep x's strides,
+# which are the channels_last strides the row kernels take. The eager calls
+# do not go through the dispatcher: it would add host time to every call of
+# the host-bound sampling forward.
+
+@torch.library.custom_op("pggan::pixel_norm", mutates_args=())
+def pixel_norm_op(x: torch.Tensor, eps: float) -> torch.Tensor:
+    return _pixel_norm_fwd(x, eps)
+
+
+@pixel_norm_op.register_fake
+def _(x, eps):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("pggan::lrelu_pixel_norm", mutates_args=())
+def lrelu_pixel_norm_op(x: torch.Tensor, slope: float, eps: float) -> torch.Tensor:
+    return _lrelu_pixel_norm_fwd(x, slope, eps)
+
+
+@lrelu_pixel_norm_op.register_fake
+def _(x, slope, eps):
+    return torch.empty_like(x)
+
+
 def pixel_norm(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     """Pixel normalisation over the channel axis (`pallas_kernels.pixel_norm`)."""
+    if torch.compiler.is_exporting():
+        return pixel_norm_op(x, float(eps))
     if torch.is_grad_enabled() and x.requires_grad:     # autograd records the call
         return _PixelNorm.apply(x, float(eps))
     return _pixel_norm_fwd(x, float(eps))
@@ -452,6 +492,8 @@ def pixel_norm(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
 def lrelu_pixel_norm(x: torch.Tensor, slope: float = 0.2,
                      eps: float = EPS) -> torch.Tensor:
     """pixel_norm(leaky_relu(x)) in one pass (`pallas_kernels.lrelu_pixel_norm`)."""
+    if torch.compiler.is_exporting():
+        return lrelu_pixel_norm_op(x, float(slope), float(eps))
     if torch.is_grad_enabled() and x.requires_grad:     # autograd records the call
         return _LreluPixelNorm.apply(x, float(slope), float(eps))
     return _lrelu_pixel_norm_fwd(x, float(slope), float(eps))

@@ -2,7 +2,9 @@
 `pggan_tpu/train/trainer.py`.
 
 It holds G, D, their Adam optimizers, the optional G weight average, the
-progressive schedule and the batch stream (`data/pipeline.py`). A scale
+progressive schedule and the batch stream (`data/pipeline.py`; with
+`device_data_cache` on, assembled on the device from the scale's images
+uploaded once, `data/device_cache.py`). A scale
 jump grows both networks, rebuilds the data stream at the new resolution,
 starts fresh optimizers (the reference discards Adam's moments at every
 jump) and builds the next scale's step. Lazy R1 (`r1_interval > 1`) runs
@@ -57,6 +59,7 @@ import torch
 
 from pggan_tpu_torch.config import Config
 from pggan_tpu_torch.data.dataset import ImageFolderDataset, build_dataset, split_dataset
+from pggan_tpu_torch.data.device_cache import DeviceDataCache, resolve_device_data_cache
 from pggan_tpu_torch.data.pipeline import DataPipeline
 from pggan_tpu_torch.losses.collector import LossCollector
 from pggan_tpu_torch.metrics.fid import (RandomConvFeatures, compute_activations,
@@ -188,18 +191,29 @@ class ProgressiveGANTrainer:
 
     def set_data_iterator(self) -> None:
         """The batch stream of this scale, fast-forwarded past the batches
-        already consumed at it (`trainer.py:204-258`)."""
+        already consumed at it (`trainer.py:204-258`). With
+        `device_data_cache` on (`data/device_cache.py`), the scale's resized
+        images are uploaded to the device once and the stream's batches are
+        assembled there; the old scale's cache is freed before the upload."""
         if self._pipeline is not None:
             self._pipeline.close()
+        self._pipeline = None           # drops the old scale's cache with it
         sched = self.schedule
         scale_start = (sched.next_scale_jump_step
                        - int(sched.max_step_at_scale[sched.scale_index]))
+        assemble_fn = None
+        if resolve_device_data_cache(self.cfg, self.dataset, num_replicas=1):
+            cache = DeviceDataCache(self.dataset, self.device)
+            assemble_fn = cache.assemble
+            print(f"[pggan_tpu_torch] device data cache: {cache.n_images} images, "
+                  f"{cache.nbytes / 1e6:.1f} MB on {self.device}")
         self._pipeline = DataPipeline(
             self.dataset, self.batch_size, indices=self._train_indices,
             num_workers=int(self.cfg.num_data_workers),
             prefetch_depth=int(self.cfg.prefetch_depth),
             seed=int(self.cfg.seed) + sched.scale_index,
-            start_batch=max(0, self.global_step - scale_start), device=self.device)
+            start_batch=max(0, self.global_step - scale_start), device=self.device,
+            assemble_fn=assemble_fn)
 
     def set_loss_collector(self) -> None:
         self.loss_collector = LossCollector(

@@ -8,13 +8,14 @@ import pathlib
 import jax
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 import demo as jax_demo
 from pggan_tpu.config import Config as JaxConfig
 from pggan_tpu.models.generator import init_generator_params
 from pggan_tpu.utils import checkpoint as jax_ckpt
-from pggan_tpu_torch import demo, params_to_jax
+from pggan_tpu_torch import demo, export, params_to_jax
 from pggan_tpu_torch.utils import checkpoint as port_ckpt
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -83,10 +84,36 @@ def test_port_checkpoint_loads_in_jax(jax_run, tmp_path):
         np.testing.assert_array_equal(back[key], arrays[key])
 
 
-def test_export_is_not_ported(jax_run):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        demo.main(["--ckpt_id", "run", "--save_root", jax_run, "--device", "cpu",
-                   "--export", "x.pt2"])
+def test_export_is_not_ported(jax_run, tmp_path, capsys):
+    """`--export PATH` (which once raised) writes the serving artifact of
+    the loaded G, which `export.sample` reads, and then samples as before."""
+    path, out = tmp_path / "g.pt2", tmp_path / "samples"
+    rc = demo.main(["--ckpt_id", "run", "--save_root", jax_run, "--device", "cpu",
+                    "--n_samples", "2", "--output_dir", str(out), "--export", str(path)])
+    assert rc == 0 and sorted(os.listdir(out)) == ["result_0.jpg", "result_1.jpg"]
+    assert f"wrote serving artifact (scale {SCALE}, alpha 0.5) to {path}" in capsys.readouterr().out
+    z = np.random.RandomState(0).randn(3, ARGS["latent_dim"])
+    images = export.sample(str(path), z)
+    assert images.dtype == np.uint8 and images.shape == (3, 16, 16, 3)
+
+
+def test_demo_export_takes_the_checkpoint_settings(jax_run, tmp_path):
+    """The artifact is G with the checkpoint's alpha, slope, pixel norm and
+    last activation, in f32: it equals the loaded G's forward."""
+    arrays, _, meta = port_ckpt.load_checkpoint(jax_run, "run", "G", 7)
+    meta["args"].update(LReLU_slope=0.1, generator_last_activation="tanh")
+    meta["schedule"]["alpha"] = 0.25
+    port_ckpt.save_checkpoint(str(tmp_path), "tanh", "G", 7, params=arrays, meta=meta)
+    path = tmp_path / "g.pt2"
+    assert demo.main(["--ckpt_id", "tanh", "--save_root", str(tmp_path), "--device", "cpu",
+                      "--n_samples", "1", "--export", str(path)]) == 0
+    generator, _, _, alpha = demo.load_generator(str(tmp_path), "tanh", device="cpu")
+    assert (alpha, generator.slope, generator.last_activation) == (0.25, 0.1, "tanh")
+    z = torch.from_numpy(np.random.RandomState(1).randn(2, ARGS["latent_dim"]).astype(np.float32))
+    with torch.no_grad():
+        want = generator(z, alpha)
+        got = export.load_exported(str(path)).module()(z)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
 def _imported_modules(path: pathlib.Path):
@@ -100,7 +127,7 @@ def _imported_modules(path: pathlib.Path):
 def test_port_imports_no_jax():
     files = sorted((REPO / "pggan_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_step.py",
-        REPO / "tools" / "time_row_kernels.py"]
+        REPO / "tools" / "time_row_kernels.py", REPO / "tools" / "bench_serving_torch.py"]
     assert len(files) > 10
     banned = []
     for path in files:
