@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's sampling, training, ops, evaluation and serving paths once on one CUDA card.
+"""Drive the PyTorch port's sampling, training, ops, evaluation, serving,
+import and data-parallel paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -107,12 +108,28 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      batches 1, 3 and 16 against the eager G (f32, TF32 off), 2 and 13
      launches per forward, a bf16 artifact against the eager bf16 G, an
      artifact exported on the CPU served on the card, and
-     tools/bench_serving_torch.py in direct and artifact modes.
+     tools/bench_serving_torch.py in direct and artifact modes;
+ 16. a reference (PyTorch) checkpoint at full width: reference-format
+     `G_*.pt` / `D_*.pt` at scale 6 (numpy-seeded weights under the
+     reference's key names, one G block without PixelNorm's Sequential
+     indices, the schedule scalars at alpha 0.5, an `args` dict) imported by
+     `python -m pggan_tpu_torch.import_ckpt` (timed), sampled by
+     `pggan_tpu_torch.demo` (2 and 13 launches a forward), and the imported
+     G (f32, TF32 off) against a functional forward of the state_dict
+     within 1e-5 of the largest output;
+ 17. the data-parallel path on the one card, resuming phase 16's import:
+     `torchrun --nproc_per_node 1 -m pggan_tpu_torch.train --use_mGPU` (the
+     NCCL group line, the loss lines, rank 0's checkpoints), the spawn
+     route (`--use_mGPU` without torchrun), the same run in this process
+     with phase 8's launches per step; the data-parallel f32 step against
+     the single-process step bit for bit (TF32 off, deterministic cuDNN);
+     the bf16 steps with and without the gradient all-reduce and the
+     all-reduce's own time.
 
 The second-to-last lines are a JSON object describing the kernels and the
 card's name and power limit; the last line is
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Exits non-zero without a CUDA device, and imports nothing of JAX.
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}, count the
+cards the run used. Exits non-zero without a CUDA device, and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -135,6 +152,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH, SCALE, ALPHA = 16, 6, 0.5
@@ -207,6 +225,14 @@ SERVE_LAUNCHES = {"pixel_norm": 2, "lrelu_pixel_norm": 13}
 VAL_LAUNCHES = {"pixel_norm": 2, "lrelu_pixel_norm": 13, "lrelu_pixel_norm_bwd": 0,
                 "minibatch_stddev_stat": 2, "bias_lrelu_gain": 0}
 FAKE_LAUNCHES = dict(VAL_LAUNCHES, minibatch_stddev_stat=0)
+# Phase 16: a reference (PyTorch) checkpoint at scale 6: G's blocks whose
+# second conv sits at Sequential index 2 (no PixelNorm modules between the
+# convs) rather than 3; the imported G against a functional forward of the
+# state_dict, f32 with TF32 off: max |diff| over the largest output.
+REF_PLAIN_BLOCKS, IMPORT_RTOL = (2,), 1e-5
+# Phase 17: steps of the data-parallel runs (a checkpoint every 2), of the
+# spawn route, and of the f32 comparison with the single-process step.
+DP_STEPS, SPAWN_STEPS, DP_COMPARE_STEPS = 4, 2, 2
 # The extractors on the card against the CPU, f32 with TF32 off, the same
 # weights: cuDNN and the CPU sum in other orders through InceptionV3's 94
 # convolutions (the JAX package's torch-mirror test allows rtol = atol = 2e-3): max
@@ -282,6 +308,8 @@ SMALL_NUMEL, SMALL_ITERS = BATCH * 4 * 4 * 512, 200
 # H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s off
 # the tensor cores.
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
+# Untimed replays before `device_ms` times its graph (see there).
+DEVICE_WARM_S = 0.1
 
 
 class SmokeFailure(RuntimeError):
@@ -324,8 +352,11 @@ def device_ms(fn, kernels=None, name=None, calls: int = 20, replays: int = 5,
     """The device time of one call: `calls` calls captured in one CUDA graph
     (after warm-up on a side stream), `replays` replays of it timed with
     CUDA events, so no host work sits between the launches; the best of
-    `groups` such timings, after 3 untimed replays (the card may have
-    lowered its clock while the host-bound calls before left it idle). A
+    `groups` such timings, after untimed replays for DEVICE_WARM_S (one at
+    a time, so the time is the card's): right after phase 10's full-width
+    step timing, the first ~30-60 ms of the f32 [16,64,64,256] backward's
+    replays ran 15 % slow at unchanged clocks (tools/probe_device_ms.py),
+    which 3 untimed replays did not cover. A
     wrapper launches on the current stream, which is the capture stream
     while capturing, so its launches are captured. Checks that the launch
     count of `name` moved once per captured call and not during the
@@ -352,8 +383,10 @@ def device_ms(fn, kernels=None, name=None, calls: int = 20, replays: int = 5,
         out.fill_(float("nan"))
     else:                               # every element differs from the eager result
         out.copy_(torch.bitwise_not(want))
-    for _ in range(3):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < DEVICE_WARM_S:
         graph.replay()
+        torch.cuda.synchronize()
     best = float("inf")
     for _ in range(groups):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -523,17 +556,31 @@ def check_kernels(kernels, shapes, gen):
 def run_demo(demo, kernels, cfg, depths, tmp):
     """Phase 4: a JAX-format checkpoint at full width, sampled through the
     demo's entry point. Returns the kernel launches of that run."""
-    from PIL import Image
     from pggan_tpu_torch.utils import checkpoint as ckpt_lib
 
     arrays = numpy_generator_arrays(1234, int(cfg.latent_dim), depths, SCALE)
     ckpt_lib.save_checkpoint(tmp, "smoke", "G", 0, params=arrays, meta={
         "args": cfg.to_dict(), "schedule": {"scale_index": SCALE, "alpha": ALPHA}})
-    out_dir = os.path.join(tmp, "samples")
+    launches, files, demo_s = sample_demo(demo, kernels, tmp, "smoke")
+    forwards = len(files) // BATCH
+    print(f"[4 slice] demo wrote {len(files)} JPEGs of 256x256 from a JAX-format "
+          f"scale-{SCALE} checkpoint in {demo_s:.2f} s (checkpoint load, "
+          f"{forwards} forwards, JPEG writes); launches {launches} = "
+          f"{forwards} forwards x (2, 13)")
+    return launches
+
+
+def sample_demo(demo, kernels, save_root, run_id):
+    """`pggan_tpu_torch.demo` on a run: 2 × BATCH images at batch BATCH,
+    the JPEGs and the launches (2 pixel_norm and 13 lrelu_pixel_norm a
+    forward) checked. Returns (launches, files, seconds)."""
+    from PIL import Image
+
+    out_dir = os.path.join(save_root, f"samples_{run_id}")
     n_samples = 2 * BATCH
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    rc = demo.main(["--ckpt_id", "smoke", "--save_root", tmp, "--device", "cuda",
+    rc = demo.main(["--ckpt_id", run_id, "--save_root", save_root, "--device", DEVICE,
                     "--n_samples", str(n_samples), "--batch_size", str(BATCH),
                     "--output_dir", out_dir])
     torch.cuda.synchronize()
@@ -550,11 +597,7 @@ def run_demo(demo, kernels, cfg, depths, tmp):
         with Image.open(os.path.join(out_dir, name)) as img:
             check(img.size == (256, 256) and img.mode == "RGB",
                   f"{name}: {img.size} {img.mode}")
-    print(f"[4 slice] demo wrote {len(files)} JPEGs of 256x256 from a JAX-format "
-          f"scale-{SCALE} checkpoint in {demo_s:.2f} s (checkpoint load, "
-          f"{forwards} forwards, JPEG writes); launches {launches} = "
-          f"{forwards} forwards x (2, 13)")
-    return launches
+    return launches, files, demo_s
 
 
 def check_forward(kernels, generator, z, alpha):
@@ -822,6 +865,20 @@ def train_checkpoint(ckpt_lib, cfg, depths, tmp):
     start step)."""
     arrays_g = numpy_generator_arrays(1234, int(cfg.latent_dim), depths, SCALE)
     arrays_d = numpy_discriminator_arrays(4321, depths, SCALE)
+    args, start, schedule = train_args(cfg, tmp)
+    for name, arrays in (("G", arrays_g), ("D", arrays_d)):
+        ckpt_lib.save_checkpoint(tmp, "smoke_init", name, start, params=arrays,
+                                 opt=fresh_adam_arrays(arrays),
+                                 meta={"args": args, "schedule": schedule})
+    return args, arrays_g, arrays_d, start
+
+
+def train_args(cfg, tmp):
+    """The args of the training checkpoints (phases 8 and 16): configs.yaml's
+    with batch BATCH, a loss line every step, a checkpoint every 2, r1 every
+    step, synthetic data; the start step inside scale 6 at alpha 0.5 with
+    no jump within the runs, and the schedule there. Returns (args, start,
+    schedule)."""
     args = cfg.to_dict()
     args.update(batch_per_gpu=BATCH, loss_cycle=1, ckpt_cycle=2,
                 data_backend="synthetic", use_validation=False, fid_cycle=0,
@@ -834,11 +891,7 @@ def train_checkpoint(ckpt_lib, cfg, depths, tmp):
     schedule = {"scale_index": SCALE, "alpha": ALPHA, "alpha_index": 200,
                 "alpha_jump_value": 1.0 / 400, "next_scale_jump_step": scale_end,
                 "next_alpha_jump_step": start + 50}
-    for name, arrays in (("G", arrays_g), ("D", arrays_d)):
-        ckpt_lib.save_checkpoint(tmp, "smoke_init", name, start, params=arrays,
-                                 opt=fresh_adam_arrays(arrays),
-                                 meta={"args": args, "schedule": schedule})
-    return args, arrays_g, arrays_d, start
+    return args, start, schedule
 
 
 def run_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp):
@@ -2414,6 +2467,336 @@ def run_serving(demo, kernels, cfg, depths, tmp, card):
     print(f"[15 export] phase 15 took {time.perf_counter() - t_phase:.2f} s")
 
 
+# ---- phase 16: a reference (PyTorch) checkpoint imported at full width ----
+
+def reference_state_dicts(seed, latent_dim, depths, scale):
+    """G's and D's state_dicts under the reference's key names
+    (`pggan/nets.py`, `lib/blocks.py`), in its layouts (OIHW, [out, in]),
+    drawn with numpy: N(0, 1) weights, U(±1/sqrt(fan_in)) biases. G's block
+    convs sit at Sequential indices {0, 3} (PixelNorm modules between), the
+    blocks of REF_PLAIN_BLOCKS at {0, 2}; D's at {0, 2}."""
+    rng = np.random.default_rng(seed)
+
+    def layer(sd, prefix, shape):
+        bound = 1.0 / math.sqrt(int(np.prod(shape[1:])))
+        sd[f"{prefix}.weight"] = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+        sd[f"{prefix}.bias"] = torch.from_numpy(
+            rng.uniform(-bound, bound, shape[0]).astype(np.float32))
+
+    sd_g, sd_d, d0 = {}, {}, depths[0]
+    layer(sd_g, "latent_format_layer.module", (16 * d0, latent_dim))
+    layer(sd_g, "first_block.block.0.module", (d0, d0, 3, 3))
+    for i in range(scale):
+        second = 2 if i in REF_PLAIN_BLOCKS else 3
+        layer(sd_g, f"blocks.{i}.block.0.module", (depths[i + 1], depths[i], 3, 3))
+        layer(sd_g, f"blocks.{i}.block.{second}.module", (depths[i + 1], depths[i + 1], 3, 3))
+    for i in range(scale + 1):
+        layer(sd_g, f"toRGB_blocks.{i}.toRGB.module", (3, depths[i], 1, 1))
+    layer(sd_d, "decision_layer.module", (1, d0))
+    layer(sd_d, "minibatch_normalization_block.conv.module", (d0, d0 + 1, 3, 3))
+    layer(sd_d, "minibatch_normalization_block.linear.module", (d0, 16 * d0))
+    for i in range(scale):
+        layer(sd_d, f"blocks.{i}.block.0.module", (depths[i + 1], depths[i + 1], 3, 3))
+        layer(sd_d, f"blocks.{i}.block.2.module", (depths[i], depths[i + 1], 3, 3))
+    for i in range(scale + 1):
+        layer(sd_d, f"fromRGB_blocks.{i}.fromRGB.module", (depths[i], 3, 1, 1))
+    return sd_g, sd_d
+
+
+def reference_generator_forward(sd, z, alpha, scale, slope=0.2):
+    """The reference `Generator.forward` (`pggan/nets.py:121-161`, PixelNorm
+    on, no last activation) written straight from its state_dict with
+    F.linear / F.conv2d: each layer's weight and bias times its He constant
+    sqrt(2 / fan_in); a block's convs in the Sequential order of its keys.
+    NCHW f32."""
+    def eq(prefix, x, op, **kw):
+        w, b = sd[f"{prefix}.weight"], sd[f"{prefix}.bias"]
+        c = math.sqrt(2.0 / w[0].numel())
+        return op(x, w * c, b * c, **kw)
+
+    def pn(x):
+        return x * torch.rsqrt(x.square().mean(dim=1, keepdim=True) + 1e-8)
+
+    def act(x):
+        return pn(F.leaky_relu(x, slope))
+
+    def up(x):
+        return F.interpolate(x, scale_factor=2, mode="nearest")
+
+    x = F.leaky_relu(eq("latent_format_layer.module", pn(z), F.linear), slope)
+    x = act(eq("first_block.block.0.module", pn(x.view(x.shape[0], -1, 4, 4)), F.conv2d,
+               padding=1))
+    prev = x
+    for i in range(scale):
+        prev, x = x, up(x)
+        for j in sorted(int(k.split(".")[3]) for k in sd
+                        if k.startswith(f"blocks.{i}.") and k.endswith(".weight")):
+            x = act(eq(f"blocks.{i}.block.{j}.module", x, F.conv2d, padding=1))
+    out = eq(f"toRGB_blocks.{scale}.toRGB.module", x, F.conv2d)
+    if scale:
+        low = up(eq(f"toRGB_blocks.{scale - 1}.toRGB.module", prev, F.conv2d))
+        out = (1.0 - alpha) * low + alpha * out
+    return out
+
+
+def run_reference_import(demo, kernels, cfg, depths, tmp):
+    """Phase 16: reference-format `G_*.pt` / `D_*.pt` at scale 6, full width
+    (schedule scalars at alpha 0.5, an `args` dict with a key the port does
+    not have), imported by `python -m pggan_tpu_torch.import_ckpt` into the
+    run "imported", sampled by `pggan_tpu_torch.demo` (2 × BATCH images,
+    launches checked), and the imported G (kernel path, f32, TF32 off)
+    against `reference_generator_forward` of the same state_dict on one
+    latent batch from a generator of the phase's own (seed 0). Returns the
+    import's step (phase 17 resumes it)."""
+    latent = int(cfg.latent_dim)
+    t_phase = time.perf_counter()
+    sd_g, sd_d = reference_state_dicts(5678, latent, depths, SCALE)
+    args, start, schedule = train_args(cfg, tmp)
+    common = {"args": dict(args, reference_only_key=True), "global_step": start,
+              "alpha_G": schedule["alpha"], "alpha_D": schedule["alpha"],
+              "alpha_index": schedule["alpha_index"],
+              "alpha_jump_value": schedule["alpha_jump_value"],
+              "next_alpha_jump_step": schedule["next_alpha_jump_step"],
+              "scale_index": SCALE, "next_scale_jump_step": schedule["next_scale_jump_step"]}
+    paths = {}
+    for name, sd in (("G", sd_g), ("D", sd_d)):
+        paths[name] = os.path.join(tmp, f"{name}_{start}.pt")
+        torch.save({**common, "model": sd, "optimizer": {}}, paths[name])
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "pggan_tpu_torch.import_ckpt", "--g",
+                           paths["G"], "--d", paths["D"], "--run_id", "imported",
+                           "--save_root", tmp], cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    import_s = time.perf_counter() - t0
+    for line in (done.stdout + done.stderr).splitlines():
+        print(f"[16 import]   {line}")
+    check(done.returncode == 0, f"import_ckpt returned {done.returncode}")
+    print(f"[16 import] python -m pggan_tpu_torch.import_ckpt: reference G and D "
+          f"({sum(v.numel() for v in sd_g.values()) / 1e6:.2f} M and "
+          f"{sum(v.numel() for v in sd_d.values()) / 1e6:.2f} M f32 parameters, G blocks "
+          f"{list(REF_PLAIN_BLOCKS)} without PixelNorm indices) at scale {SCALE} imported in "
+          f"{import_s:.2f} s (a fresh process: start-up, torch.load, conversion, npz writes)")
+
+    launches, files, demo_s = sample_demo(demo, kernels, tmp, "imported")
+    print(f"[16 import] pggan_tpu_torch.demo on the import: {len(files)} JPEGs of 256x256 "
+          f"in {demo_s:.2f} s; launches {launches} = {len(files) // BATCH} forwards x (2, 13)")
+    G, g_args, scale, alpha = demo.load_generator(tmp, "imported", device=DEVICE)
+    check((scale, alpha) == (SCALE, ALPHA), f"imported schedule {scale}, {alpha}")
+    check(g_args.generator_last_activation in (None, "", "none", "linear"),
+          f"last activation {g_args.generator_last_activation!r}")
+    z = torch.randn((BATCH, latent), generator=torch.Generator(device=DEVICE).manual_seed(0),
+                    device=DEVICE)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        out = G(z, alpha)
+        per_forward = {k: v for k, v in kernels.launches.items() if v}
+        ref = reference_generator_forward({k: v.to(DEVICE) for k, v in sd_g.items()}, z,
+                                          alpha, SCALE).permute(0, 2, 3, 1)
+    check(per_forward == SERVE_LAUNCHES, f"launches of one forward {per_forward}")
+    err, largest = float((out - ref).abs().max()), float(ref.abs().max())
+    check(tuple(out.shape) == (BATCH, RES, RES, 3) and bool(torch.isfinite(out).all()),
+          f"imported G output {tuple(out.shape)}")
+    check(err <= IMPORT_RTOL * largest, f"imported G vs the reference forward: max |diff| "
+                                        f"{err:.3g}, largest output {largest:.3g}")
+    print(f"[16 import] imported G (kernel path, f32, TF32 off) vs the reference forward "
+          f"of the state_dict (F.linear / F.conv2d, He constants): max |diff| {err:.3g} = "
+          f"{err / largest:.3g} of the largest output {largest:.3g} (bound {IMPORT_RTOL}); "
+          f"launches a forward {per_forward}")
+    print(f"[16 import] phase 16 took {time.perf_counter() - t_phase:.2f} s")
+    return start
+
+
+# ---- phase 17: the data-parallel path on the one card ----
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        return probe.getsockname()[1]
+
+
+@contextlib.contextmanager
+def torchrun_vars():
+    """torchrun's variables for rank 0 of a group of 1 on a free port."""
+    with mock.patch.dict(os.environ, {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                                      "MASTER_ADDR": "127.0.0.1",
+                                      "MASTER_PORT": str(free_port())}):
+        yield
+
+
+def dp_child(argv, label):
+    """A data-parallel training process (torchrun or the spawn route), its
+    output printed; returns (output lines, seconds)."""
+    t0 = time.perf_counter()
+    done = subprocess.run(argv, cwd=REPO, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    lines = (done.stdout + done.stderr).splitlines()
+    for line in lines:
+        print(f"[17 dp]   {line}")
+    check(done.returncode == 0, f"{label} returned {done.returncode}")
+    return lines, seconds
+
+
+def check_dp_run(lines, ckpt_lib, tmp, run, start, steps, label):
+    group = ("process group: nccl, world 1, rank 0, device cuda:0" if DEVICE == "cuda" else
+             "process group: gloo, world 1, rank 0, device cpu")
+    check(any(group in line for line in lines), f"{label}: no line {group!r}")
+    losses = [line for line in lines if line.startswith("lossD:")]
+    check(len(losses) == steps, f"{label}: {len(losses)} loss lines")
+    for line in losses:
+        d, g = line.replace("lossD:", "").split("| lossG:")
+        check(np.isfinite(float(d)) and np.isfinite(float(g)), f"loss line {line!r}")
+    ckpt_steps = sorted(int(f.split("_")[1][:-4]) for f in os.listdir(
+        ckpt_lib.ckpt_dir(tmp, run)) if f.startswith("G_") and "latest" not in f)
+    want = list(range(start + 2, start + steps, 2)) + [start + steps]
+    check(ckpt_steps == want, f"{label}: checkpoint steps {ckpt_steps}, expected {want}")
+    return ckpt_steps
+
+
+def run_data_parallel(train_mod, kernels, ckpt_lib, tmp, start):
+    """Phase 17a-c: `--use_mGPU` through torchrun (a child process), the
+    spawn route (a child process) and in this process under torchrun's
+    variables, each resuming phase 16's import for bf16 r1 steps at batch
+    BATCH on synthetic data with a checkpoint every 2 steps. Returns (the
+    launches of the in-process run, the ranks of the spawn route)."""
+    t_phase = time.perf_counter()
+    config = os.path.join(tmp, "dp.yaml")
+    with open(config, "w") as f:
+        json.dump({"save_root": tmp}, f)            # JSON is YAML
+    base = ["--config", config, "--ckpt_id", "imported", "--compute_dtype", "bfloat16",
+            "--device", DEVICE, "--use_mGPU"]
+    end = str(start + DP_STEPS)
+    lines, torchrun_s = dp_child(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         "1", "-m", "pggan_tpu_torch.train", "dp_torchrun", "--max_step", end, *base],
+        "torchrun")
+    ckpts = check_dp_run(lines, ckpt_lib, tmp, "dp_torchrun", start, DP_STEPS, "torchrun")
+    print(f"[17 dp] torchrun --nproc_per_node 1 -m pggan_tpu_torch.train --use_mGPU: an "
+          f"NCCL group of world 1 on cuda:0, {DP_STEPS} bf16 r1 steps from the import, "
+          f"checkpoints by rank 0 at {ckpts}, in {torchrun_s:.2f} s (a fresh process)")
+
+    lines, spawn_s = dp_child([sys.executable, "-m", "pggan_tpu_torch.train", "dp_spawn",
+                               "--max_step", str(start + SPAWN_STEPS), *base], "spawn route")
+    world = torch.cuda.device_count()
+    check(any(f"spawning {world} ranks" in line for line in lines), "no spawn line")
+    check_dp_run(lines, ckpt_lib, tmp, "dp_spawn", start, SPAWN_STEPS, "spawn route")
+    print(f"[17 dp] the spawn route (--use_mGPU without torchrun): {world} rank(s), "
+          f"{SPAWN_STEPS} steps in {spawn_s:.2f} s")
+
+    out = io.StringIO()
+    with torchrun_vars():
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = train_mod.main(["dp_inproc", "--max_step", end, *base])
+        torch.cuda.synchronize()
+        inproc_s = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+    lines = out.getvalue().splitlines()
+    check(rc == 0, f"in-process data-parallel main returned {rc}")
+    check(not torch.distributed.is_initialized(), "main left its process group joined")
+    check_dp_run(lines, ckpt_lib, tmp, "dp_inproc", start, DP_STEPS, "in-process")
+    want = {k: n * DP_STEPS for k, n in STEP_LAUNCHES.items()}
+    check(launches == want, f"data-parallel launches {launches}, expected {want}")
+    print(f"[17 dp] in this process under torchrun's variables: the same group line and "
+          f"checkpoints; launches {launches} = {DP_STEPS} steps x phase 8's {STEP_LAUNCHES}, "
+          f"in {inproc_s:.2f} s")
+    print(f"[17 dp] phase 17a-c took {time.perf_counter() - t_phase:.2f} s")
+    return launches, world
+
+
+def compare_dp_step(step_mod, equalized, mesh, cfg, arrays_g, arrays_d, gen):
+    """Phase 17d: DP_COMPARE_STEPS f32 steps (TF32 off, cuDNN's deterministic
+    algorithms) of the data-parallel step in a group of 1 (gradients through
+    `mesh.all_reduce_mean_`: a flat copy, NCCL's one-rank all-reduce, a
+    division by 1, the copy back) against the single-process step, from the
+    same state, batches and latent generator: parameters and Adam's
+    moments must agree bit for bit. Call inside a joined group."""
+    batches = [torch.randint(0, 256, (BATCH, RES, RES, 3), generator=gen, device=DEVICE,
+                             dtype=torch.uint8) for _ in range(DP_COMPARE_STEPS)]
+    results = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, kw in (("single", {}), ("data-parallel", dict(
+                grad_sync=mesh.all_reduce_mean_, rank=mesh.rank(),
+                world_size=mesh.world_size()))):
+            state = train_state(step_mod, cfg, arrays_g, arrays_d)
+            step = step_mod.make_train_step(cfg, SCALE, **kw)
+            for batch in batches:
+                metrics, _ = step(state, batch, ALPHA)
+            results[label] = ({k: float(v) for k, v in metrics.items()}, {
+                f"{n}/{part}/{k}": v for n, net, opt in (("G", state.G, state.opt_G),
+                                                         ("D", state.D, state.opt_D))
+                for part, arrays in (("params", equalized.params_to_jax(net)),
+                                     ("opt", equalized.adam_state_to_jax(opt, net)))
+                for k, v in arrays.items()})
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (m_a, a), (m_b, b) = results["single"], results["data-parallel"]
+    differ = sorted(k for k in a if not np.array_equal(a[k], b[k]))
+    worst = max((float(np.abs(a[k] - b[k]).max()) for k in differ), default=0.0)
+    print(f"[17 dp] f32 TF32 off, {DP_COMPARE_STEPS} r1 steps at {RES}x{RES} batch {BATCH}: "
+          f"the data-parallel step (world {mesh.world_size()}) vs the single-process step: "
+          f"{len(a) - len(differ)} of {len(a)} arrays (G and D parameters, Adam count, mu, "
+          f"nu) bit for bit equal, largest |diff| {worst:.3g}; losses {m_b} vs {m_a}")
+    check(not differ and m_a == m_b, f"the data-parallel step differs from the single-process "
+                                     f"step in {differ[:6]}")
+
+
+def time_data_parallel(step_mod, mesh, cfg, arrays_g, arrays_d, gen, card):
+    """Phase 17e: the bf16 R1 step and the step without R1, with and without
+    the gradient all-reduce (a group of 1), in (single, dp, dp, single)
+    turns; `all_reduce_mean_` alone on G's and D's gradients (CUDA events,
+    20 calls), and its NCCL call alone on the flat bucket. Call inside a
+    joined group."""
+    batch = torch.randint(0, 256, (BATCH, RES, RES, 3), generator=gen, device=DEVICE,
+                          dtype=torch.uint8)
+    run_cfg = copy.deepcopy(cfg)
+    run_cfg["compute_dtype"] = "bfloat16"
+    state = train_state(step_mod, run_cfg, arrays_g, arrays_d)
+    sync = dict(grad_sync=mesh.all_reduce_mean_, rank=mesh.rank(), world_size=mesh.world_size())
+    step_ms = {}
+    for r1 in (True, False):
+        steps = {"single": step_mod.make_train_step(run_cfg, SCALE, include_r1=r1),
+                 "dp": step_mod.make_train_step(run_cfg, SCALE, include_r1=r1, **sync)}
+        seen = collections.defaultdict(list)
+        for label in ("single", "dp", "dp", "single"):
+            for _ in range(2):
+                steps[label](state, batch, ALPHA)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                steps[label](state, batch, ALPHA)
+            torch.cuda.synchronize()
+            seen[label].append((time.perf_counter() - t0) / 5 * 1e3)
+        step_ms[r1] = {k: sum(v) / len(v) for k, v in seen.items()}
+        kind = "R1" if r1 else "no R1"
+        single, dp = step_ms[r1]["single"], step_ms[r1]["dp"]
+        print(f"[17 times] bf16 {kind} step {RES}x{RES} batch {BATCH}: single process "
+              f"{single:.2f} ms, data-parallel (world {mesh.world_size()}) {dp:.2f} ms "
+              f"({100 * (dp / single - 1):+.2f} %); host clock over 5 steps after 2 "
+              f"warm-up, turns single, dp, dp, single: "
+              f"{ {k: [round(x, 2) for x in v] for k, v in seen.items()} } ({card})")
+    total_ms, total_bytes = 0.0, 0
+    for name, net in (("G", state.G), ("D", state.D)):
+        grads = [torch.randn(p.shape, generator=gen, device=DEVICE) for p in net.parameters()]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        nbytes = flat.numel() * 4
+        call = time_ms(lambda: mesh.all_reduce_mean_(grads))  # noqa: B023
+        nccl = time_ms(lambda: torch.distributed.all_reduce(flat))  # noqa: B023
+        total_ms, total_bytes = total_ms + call, total_bytes + nbytes
+        print(f"[17 times] all_reduce_mean_ on {name}'s {len(grads)} gradients "
+              f"({nbytes / 1e6:.1f} MB f32): {call:.4f} ms a call (flat copy, NCCL "
+              f"all-reduce, division, copy back; CUDA events, 20 calls); the NCCL call alone "
+              f"{nccl:.4f} ms ({card})")
+    no_r1 = step_ms[False]["single"]
+    print(f"[17 times] the two all-reduces of a step: {total_ms:.4f} ms for "
+          f"{total_bytes / 1e6:.1f} MB of gradients = {100 * total_ms / no_r1:.2f} % of the "
+          f"{no_r1:.2f} ms step without R1, {100 * total_ms / step_ms[True]['single']:.3f} % "
+          f"of the R1 step ({card})")
+    return step_ms, total_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2518,6 +2901,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="pggan_smoke_serve_") as tmp:
         run_serving(demo, kernels, cfg, depths, tmp, card)
 
+    # ---- a reference checkpoint imported, trained data-parallel ----
+    from pggan_tpu_torch.parallel import mesh
+
+    with tempfile.TemporaryDirectory(prefix="pggan_smoke_import_") as tmp:
+        start = run_reference_import(demo, kernels, cfg, depths, tmp)
+        _, cards = run_data_parallel(train_mod, kernels, ckpt_lib, tmp, start)
+    with torchrun_vars():
+        mesh.init_distributed(Config({"use_mGPU": True}), DEVICE)
+        try:
+            compare_dp_step(step_mod, equalized, mesh, step_cfg, arrays_g, arrays_d, gen)
+            time_data_parallel(step_mod, mesh, step_cfg, arrays_g, arrays_d, gen, card)
+        finally:
+            mesh.shutdown()
+
     # Every kernel of the three paths at its largest f32 shape on them;
     # `launches` is the training run's count (the demo's is checked in
     # phase 4), and bias_lrelu_gain's the ops path's (phase 11). `ms` is the
@@ -2558,8 +2955,8 @@ def main() -> int:
                        "shape": list(shape), "dtype": "float32"})
     print(json.dumps({"kernels": report}))
     print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    # the cards the run used: one, and every visible card on the spawn route
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": cards}}))
     return 0
 
 

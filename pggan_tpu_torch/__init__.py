@@ -5,9 +5,12 @@ names so each counterpart is easy to find. Ported so far: generator
 sampling (`pggan_tpu_torch.demo`), training (`pggan_tpu_torch.train`, the
 r1 and wgangp train step, the trainer with lazy R1, folder and synthetic
 data through a prefetching pipeline, sample grids, metrics, SIGTERM
-checkpoints and exact resume, validation and FID/KID), the offline
-evaluation of a checkpoint (`pggan_tpu_torch.eval_metrics`,
-`pggan_tpu_torch.metrics`) and the StyleGAN2-ops layer
+checkpoints and exact resume, validation and FID/KID, data-parallel
+training on several cards with `--use_mGPU`, `pggan_tpu_torch.parallel`),
+the import of a reference-trained PyTorch checkpoint
+(`pggan_tpu_torch.import_ckpt`), the offline evaluation of a checkpoint
+(`pggan_tpu_torch.eval_metrics`, `pggan_tpu_torch.metrics`) and the
+StyleGAN2-ops layer
 (`pggan_tpu_torch.ops`), with hand-written CUDA kernels for `pixel_norm`,
 `lrelu_pixel_norm` (forward and backward), `minibatch_stddev_stat` and
 `bias_lrelu_gain` (`ops/kernels.py`, `csrc/`).

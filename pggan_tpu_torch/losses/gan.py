@@ -1,17 +1,19 @@
-"""GAN losses of the train step — the counterpart of
-`pggan_tpu/losses/gan.py:29-103`: BCE with logits, the R1 penalty, the
-WGAN-GP penalty (a sum over the batch, as the reference), drift, and the G
-loss. Every loss is a 0-d f32 tensor. The penalties differentiate D with
+"""GAN losses — the counterpart of `pggan_tpu/losses/gan.py`: the train
+step's BCE with logits, R1 penalty, WGAN-GP penalty (a sum over the batch,
+as the reference), drift and G loss, and the rest of the reference's loss
+zoo (`lib/loss.py:54-141`): the softplus and hinge GAN losses and the
+identity, L1, L2, same-person and attribute losses its face-swap trainers
+use. Every loss is a 0-d f32 tensor. The penalties differentiate D with
 `torch.autograd.grad(create_graph=True)`, so the loss they enter can be
-differentiated again with respect to D's weights. The rest of the loss zoo
-(`losses/gan.py:113-166`) is not ported yet.
+differentiated again with respect to D's weights.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def bce_with_logits(logits: torch.Tensor, target: int) -> torch.Tensor:
@@ -22,6 +24,18 @@ def bce_with_logits(logits: torch.Tensor, target: int) -> torch.Tensor:
     x = logits.float()
     loss = torch.clamp(x, min=0.0) - x * float(target) + torch.log1p(torch.exp(-x.abs()))
     return loss.mean()
+
+
+def softplus_loss(logit: torch.Tensor, is_real: bool = True) -> torch.Tensor:
+    """Non-saturating softplus GAN loss, mean softplus(∓x) (`lib/loss.py:95-99`)."""
+    x = logit.float()
+    return F.softplus(-x if is_real else x).mean()
+
+
+def hinge_loss(logit: torch.Tensor, positive: bool = True) -> torch.Tensor:
+    """Hinge GAN loss, mean relu(1 − x) or relu(1 + x) (`lib/loss.py:108-112`)."""
+    x = logit.float()
+    return F.relu(1.0 - x if positive else x + 1.0).mean()
 
 
 def _input_grad(f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -71,3 +85,56 @@ def drift_loss(pred_real: torch.Tensor, w_drift: float) -> torch.Tensor:
 def generator_loss(pred_fake: torch.Tensor, w_adv: float) -> torch.Tensor:
     """W_adv · BCE(D(G(z)), 1)."""
     return w_adv * bce_with_logits(pred_fake, 1)
+
+
+# ---- the reconstruction, identity and attribute losses of the reference's
+# face-swap trainers (`lib/loss.py:62-91`), in f32 ----
+
+def id_loss(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """mean(1 − cos(a, b)) over [B, D] embeddings, each norm clamped at eps
+    as `F.cosine_similarity` does (`lib/loss.py:62-63`)."""
+    a, b = a.float(), b.float()
+    na = torch.linalg.vector_norm(a, dim=1).clamp_min(eps)
+    nb = torch.linalg.vector_norm(b, dim=1).clamp_min(eps)
+    return (1.0 - (a * b).sum(dim=1) / (na * nb)).mean()
+
+
+def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Mean absolute error (`lib/loss.py:71-73`)."""
+    return (a.float() - b.float()).abs().mean()
+
+
+def l2_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Mean squared error (`lib/loss.py:75-77`)."""
+    return (a.float() - b.float()).square().mean()
+
+
+def _same_person(per_sample: torch.Tensor, same_person: torch.Tensor,
+                 batch: int) -> torch.Tensor:
+    mask = same_person.float().reshape(batch)
+    return (per_sample * mask).sum() / (mask.sum() + 1e-6)
+
+
+def l1_loss_with_same_person(a: torch.Tensor, b: torch.Tensor, same_person: torch.Tensor,
+                             batch_per_gpu: int) -> torch.Tensor:
+    """Σ_b mean|a_b − b_b| · same_b / (Σ same + 1e-6) (`lib/loss.py:79-80`)."""
+    per = (a.float() - b.float()).abs().reshape(batch_per_gpu, -1).mean(dim=1)
+    return _same_person(per, same_person, batch_per_gpu)
+
+
+def l2_loss_with_same_person(a: torch.Tensor, b: torch.Tensor, same_person: torch.Tensor,
+                             batch_per_gpu: int) -> torch.Tensor:
+    """Σ_b 0.5·mean(a_b − b_b)² · same_b / (Σ same + 1e-6) (`lib/loss.py:82-83`)."""
+    per = 0.5 * (a.float() - b.float()).square().reshape(batch_per_gpu, -1).mean(dim=1)
+    return _same_person(per, same_person, batch_per_gpu)
+
+
+def attr_loss(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor],
+              batch_size: int) -> torch.Tensor:
+    """Σ_levels Σ_b mean(aᵢ_b − bᵢ_b)², halved (`lib/loss.py:85-91`; the
+    reference sums over the batch at each level)."""
+    total = torch.zeros((), dtype=torch.float32)   # a 0-d CPU tensor joins any device
+    for ai, bi in zip(a, b):
+        d = (ai.float() - bi.float()).square().reshape(batch_size, -1)
+        total = total + d.mean(dim=1).sum()
+    return total / 2.0

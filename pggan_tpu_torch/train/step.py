@@ -16,7 +16,19 @@
 A step mutates the state in place: the modules' weights, the optimizers'
 moments and the random generator. z₁, z₂ and the WGAN-GP eps may be passed
 in (a test feeds the values JAX drew); otherwise they are drawn from the
-state's `torch.Generator` on the step's device. The JAX package's runtime
+state's `torch.Generator` on the step's device.
+
+Data parallel (`parallel/mesh.py`): with `world_size` W > 1 each rank runs
+the step on its rows of the global batch. It draws the global z₁, z₂ and
+eps (W·B rows) from the generator every rank holds in the same state, and
+keeps rows [rank·B, (rank+1)·B), as the JAX mesh draws with one replicated
+key and shards the draw; so the generators stay equal across ranks.
+`grad_sync` (e.g. `mesh.all_reduce_mean_`) averages each network's
+gradients between `backward` and the optimizer step, so every rank applies
+the gradient of the global batch. The WGAN-GP penalty and drift are sums
+over the batch, so a rank weighs its own sum by W before the average. The
+step's metrics stay the rank's own; the trainer averages them on
+loss_cycle steps. The JAX package's runtime
 `lax.cond` for lazy R1 and its `lax.scan` chunking are not ported: the
 trainer runs a lazy-R1 window as one `include_r1=True` step followed by
 `include_r1=False` steps.
@@ -30,7 +42,7 @@ from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -109,8 +121,16 @@ def eval_losses(G: Generator, D: Discriminator, real: torch.Tensor, z: torch.Ten
             generator_loss(logit_fake, w_adv))
 
 
+def _grads(net: torch.nn.Module) -> List[torch.Tensor]:
+    """The gradients a backward left on `net`'s weights, in parameter order
+    (the same list on every rank: the ranks run the same graph)."""
+    return [p.grad for p in net.parameters() if p.grad is not None]
+
+
 def make_train_step(cfg, scale_index: int, *, include_r1: Optional[bool] = None,
-                    r1_scale: Optional[float] = None) -> Callable:
+                    r1_scale: Optional[float] = None,
+                    grad_sync: Optional[Callable[[List[torch.Tensor]], None]] = None,
+                    rank: int = 0, world_size: int = 1) -> Callable:
     """Build the step for one progressive scale. Returns
     step(state, img_real, alpha, *, z1=None, z2=None, eps=None) →
     (metrics, (real, fake)): metrics a dict of 0-d tensors (L_D, L_D_real,
@@ -122,7 +142,15 @@ def make_train_step(cfg, scale_index: int, *, include_r1: Optional[bool] = None,
     `include_r1` (loss_mode 'r1'): None or True applies the penalty, False
     leaves it out (the tail of a lazy window). `r1_scale` multiplies the
     penalty; None → r1_interval, the JAX package's default for its static
-    programs (`step.py:208-214`)."""
+    programs (`step.py:208-214`).
+
+    `grad_sync(grads)`, when given, runs on each network's gradients between
+    its `backward` and its optimizer step; `rank` and `world_size` place this
+    step's rows in the global batch (see the module docstring). z₁, z₂ and
+    eps given to the step are this rank's rows."""
+    if not 0 <= int(rank) < int(world_size):
+        raise ValueError(f"rank {rank} outside [0, {world_size})")
+    rank, world_size = int(rank), int(world_size)
     latent_dim = int(cfg.latent_dim)
     w_adv, w_gp, w_drift = float(cfg.W_adv), float(cfg.W_gp), float(cfg.W_drift_D)
     loss_mode = str(cfg.loss_mode)
@@ -146,7 +174,9 @@ def make_train_step(cfg, scale_index: int, *, include_r1: Optional[bool] = None,
         def draw(shape, fn, given):
             if given is not None:
                 return given.to(device=device, dtype=torch.float32)
-            return fn(shape, generator=state.rng, device=device)
+            full = fn((world_size * shape[0],) + shape[1:], generator=state.rng,
+                      device=device)
+            return full[rank * shape[0]:(rank + 1) * shape[0]] if world_size > 1 else full
         z1 = draw((batch, latent_dim), torch.randn, z1)
         z2 = draw((batch, latent_dim), torch.randn, z2)
         eps = draw((batch,), torch.rand, eps)
@@ -180,15 +210,19 @@ def make_train_step(cfg, scale_index: int, *, include_r1: Optional[bool] = None,
             loss_d = l_real + l_fake + reg
             metrics.update(L_D_real=l_real, L_D_fake=l_fake, L_D_r1=reg, L_D=loss_d)
         else:
-            gp = (gradient_penalty(d_fn, real, fake, eps, w_gp) if w_gp
+            # sums over the batch: W times this rank's, so the ranks' mean
+            # is the global batch's sum
+            gp = (gradient_penalty(d_fn, real, fake, eps, w_gp * world_size) if w_gp
                   else torch.zeros((), device=device))
-            drift = (drift_loss(pred_real, w_drift) if w_drift
+            drift = (drift_loss(pred_real, w_drift * world_size) if w_drift
                      else torch.zeros((), device=device))
             loss_d = l_real + l_fake + gp + drift
             metrics.update(L_D_real=l_real, L_D_fake=l_fake, L_D_gp=gp,
                            L_D_eps=drift, L_D=loss_d)
         state.opt_D.zero_grad(set_to_none=True)
         loss_d.backward(inputs=list(D.parameters()))
+        if grad_sync is not None:
+            grad_sync(_grads(D))
         state.opt_D.step()
 
         # ---- G phase, against the updated D; D collects no gradient ----
@@ -196,6 +230,8 @@ def make_train_step(cfg, scale_index: int, *, include_r1: Optional[bool] = None,
         loss_g = generator_loss(d_fn(fake2), w_adv)
         state.opt_G.zero_grad(set_to_none=True)
         loss_g.backward(inputs=list(G.parameters()))
+        if grad_sync is not None:
+            grad_sync(_grads(G))
         state.opt_G.step()
         metrics["L_G"] = loss_g
 

@@ -1,5 +1,5 @@
-"""ProgressiveGANTrainer on one card — the counterpart of
-`pggan_tpu/train/trainer.py`.
+"""ProgressiveGANTrainer — the counterpart of `pggan_tpu/train/trainer.py`,
+on one card or one rank of a data-parallel group.
 
 It holds G, D, their Adam optimizers, the optional G weight average, the
 progressive schedule and the batch stream (`data/pipeline.py`; with
@@ -41,8 +41,25 @@ JAX); the reals' selection is numpy's and equals JAX's index for index.
 The fixed-seed extractor weights are not JAX's either: a port FID without
 `fid_weights` compares only with the port's own.
 
-Not ported yet (ROADMAP.md queue 1): multiple cards and
-`steps_per_dispatch`.
+Data parallel (`parallel/mesh.py`, `use_mGPU`): when a process group is
+joined, each rank trains on its share of the global batch
+(`mesh.local_batch_size`) from its shard of the data stream
+(`DataPipeline(rank, num_replicas)`), and the step averages the gradients
+over the ranks, so the parameters and Adam state stay equal on every rank
+(they are broadcast from rank 0 once, at set-up). Only rank 0 writes the
+checkpoints, the grids and `metrics.jsonl`, with a barrier after each
+checkpoint it waits for; the losses are averaged over the ranks on
+loss_cycle steps, and `imgs_per_sec` counts every rank's images. A SIGTERM
+or SIGINT on any rank stops every rank at the same step boundary (an
+all-reduce MAX of the flag there). Validation and FID run on every rank
+(the same inputs and parameters; no collective inside) and rank 0 logs
+them. The minibatch-stddev statistic stays per rank, which equals the
+global batch's grouping (the JAX mesh's) only when each rank's batch is a
+multiple of its group, so another batch raises. The device data cache
+needs one rank (`auto` is off, `true` raises), as JAX's multi-process
+rule.
+
+Not ported yet (ROADMAP.md queue 1): `steps_per_dispatch`.
 """
 
 from __future__ import annotations
@@ -71,6 +88,7 @@ from pggan_tpu_torch.models.generator import Generator
 from pggan_tpu_torch.ops.equalized import (adam_state_to_jax,
                                            load_adam_state_from_jax,
                                            load_params_from_jax, params_to_jax)
+from pggan_tpu_torch.parallel import mesh
 from pggan_tpu_torch.train.schedule import ProgressiveSchedule
 from pggan_tpu_torch.train.step import (TrainState, eval_losses, init_train_state,
                                         make_train_step)
@@ -82,6 +100,8 @@ from pggan_tpu_torch.utils.logging import MetricLogger
 _KEY_LATENTS = 2
 # Seed offsets of the evaluation latents (`trainer.py:632-641,762-771`).
 _SEED_VALIDATION, _SEED_FID = 999, 777
+# The minibatch-stddev group of D (`ops/basic.py:minibatch_stddev`).
+_MBSTD_GROUP = 4
 # `__meta__` key of the latent generator's state. The JAX loader reads only
 # `rng` (a JAX key), so the port writes its state under its own key.
 RNG_META_KEY = "torch_rng"
@@ -119,6 +139,10 @@ class ProgressiveGANTrainer:
     def __init__(self, cfg: Config, *, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
+        # a joined process group makes this one rank of a data-parallel run
+        self.distributed = torch.distributed.is_initialized()
+        self.rank, self.world = mesh.rank(), mesh.world_size()
+        self.is_master = self.rank == 0
         self.schedule = ProgressiveSchedule.from_config(cfg)
         self.global_step = 0
         self.state: Optional[TrainState] = None
@@ -149,6 +173,9 @@ class ProgressiveGANTrainer:
             self.set_data_iterator()
         self.set_loss_collector()
         self._build_step_fn()
+        if self.distributed:            # replicas start equal, whatever they loaded
+            nets = [n for n in (self.state.G, self.state.D, self.state.G_ema) if n is not None]
+            mesh.broadcast_([t.data for n in nets for t in n.state_dict().values()])
         return self
 
     def _net_kwargs(self) -> Dict:
@@ -181,7 +208,13 @@ class ProgressiveGANTrainer:
         """The dataset at the current resolution and its 70/30 split. The
         validation pipeline and the FID reals' dataset hold the old
         resolution, so they go (`trainer.py:195-202`)."""
-        self.dataset = build_dataset(self.cfg, self.schedule.scale_index, is_master=True)
+        # rank 0 first: it builds any on-disk resized store the others then read
+        if not self.is_master:
+            mesh.barrier()
+        self.dataset = build_dataset(self.cfg, self.schedule.scale_index,
+                                     is_master=self.is_master)
+        if self.is_master:
+            mesh.barrier()
         self._train_indices, self._valid_indices = split_dataset(
             len(self.dataset), 0.7, seed=int(self.cfg.seed))
         if self._valid_pipeline is not None:
@@ -201,8 +234,15 @@ class ProgressiveGANTrainer:
         sched = self.schedule
         scale_start = (sched.next_scale_jump_step
                        - int(sched.max_step_at_scale[sched.scale_index]))
+        if self.world > 1 and self.cfg.apply_minibatch_norm and \
+                self.batch_size % _MBSTD_GROUP:
+            raise ValueError(
+                f"the per-rank batch {self.batch_size} is not a multiple of the "
+                f"minibatch-stddev group ({_MBSTD_GROUP}): the statistic is taken per rank, "
+                f"and equals the global batch's grouping (the JAX mesh's) only when each "
+                f"rank's batch is a multiple of the group")
         assemble_fn = None
-        if resolve_device_data_cache(self.cfg, self.dataset, num_replicas=1):
+        if resolve_device_data_cache(self.cfg, self.dataset, num_replicas=self.world):
             cache = DeviceDataCache(self.dataset, self.device)
             assemble_fn = cache.assemble
             print(f"[pggan_tpu_torch] device data cache: {cache.n_images} images, "
@@ -212,6 +252,7 @@ class ProgressiveGANTrainer:
             num_workers=int(self.cfg.num_data_workers),
             prefetch_depth=int(self.cfg.prefetch_depth),
             seed=int(self.cfg.seed) + sched.scale_index,
+            rank=self.rank, num_replicas=self.world,
             start_batch=max(0, self.global_step - scale_start), device=self.device,
             assemble_fn=assemble_fn)
 
@@ -221,13 +262,9 @@ class ProgressiveGANTrainer:
 
     @property
     def batch_size(self) -> int:
-        """batch_per_gpu, or the `batch_schedule` entry of this scale."""
-        cfg, scale = self.cfg, self.schedule.scale_index
-        if cfg.batch_schedule:
-            sched = {int(k): int(v) for k, v in dict(cfg.batch_schedule).items()}
-            if scale in sched:
-                return sched[scale]
-        return int(cfg.batch_per_gpu)
+        """This rank's batch: batch_per_gpu, or its share of the scale's
+        `batch_schedule` entry (the global batch)."""
+        return mesh.local_batch_size(self.cfg, self.world, self.schedule.scale_index)
 
     # -- schedule -------------------------------------------------------------
     def check_jump(self, global_step: int) -> Dict[str, bool]:
@@ -248,15 +285,21 @@ class ProgressiveGANTrainer:
         self.set_data_iterator()
         self._build_step_fn()
 
+    def _make_step(self, **kw):
+        """The step of this scale, averaging its gradients over the ranks
+        when a process group is joined."""
+        if self.distributed:
+            kw.update(grad_sync=mesh.all_reduce_mean_, rank=self.rank, world_size=self.world)
+        return make_train_step(self.cfg, self.schedule.scale_index, **kw)
+
     def _build_step_fn(self) -> None:
         cfg = self.cfg
         self._r1_interval = int(cfg.r1_interval) if str(cfg.loss_mode) == "r1" else 1
         if self._r1_interval > 1:
             # a single step is a window of one: the penalty at weight 1
-            self._step_fn = make_train_step(cfg, self.schedule.scale_index,
-                                            include_r1=True, r1_scale=1.0)
+            self._step_fn = self._make_step(include_r1=True, r1_scale=1.0)
         else:
-            self._step_fn = make_train_step(cfg, self.schedule.scale_index)
+            self._step_fn = self._make_step()
 
     # -- the loop -------------------------------------------------------------
     def train_step(self) -> Images:
@@ -270,9 +313,9 @@ class ProgressiveGANTrainer:
         """A lazy-R1 window of k steps: the first applies the penalty scaled
         by k, the others none (`step.py:470-498`). The window's metrics are
         its last step's, with the first step's L_D_r1."""
-        scale, alpha = self.schedule.scale_index, float(self.schedule.alpha)
-        lead = make_train_step(self.cfg, scale, include_r1=True, r1_scale=float(k))
-        tail = make_train_step(self.cfg, scale, include_r1=False)
+        alpha = float(self.schedule.alpha)
+        lead = self._make_step(include_r1=True, r1_scale=float(k))
+        tail = self._make_step(include_r1=False)
         lead_metrics, _ = lead(self.state, next(self._pipeline), alpha)
         for _ in range(k - 1):
             self._last_metrics, _ = tail(self.state, next(self._pipeline), alpha)
@@ -305,11 +348,13 @@ class ProgressiveGANTrainer:
         flag that the loop reads between steps (and lazy-R1 windows); it
         then checkpoints the state and returns, so `--ckpt_id {run_id}`
         resumes where it stopped. Signal handlers can only be installed on
-        the main thread; elsewhere the loop runs without them."""
+        the main thread; elsewhere the loop runs without them. In a process
+        group the flag is agreed across the ranks at each boundary, so every
+        rank stops (and checkpoints) at the same step."""
         cfg = self.cfg
         if run_id is not None:
             cfg.run_id = run_id
-        if self.logger is None:
+        if self.logger is None and self.is_master:
             self.logger = MetricLogger(cfg.save_root, cfg.run_id, model_id=str(cfg.model_id),
                                        use_wandb=bool(cfg.use_wandb))
         total = min(sum(cfg.max_step_at_scale), cfg.max_step)
@@ -329,8 +374,12 @@ class ProgressiveGANTrainer:
                 pass
         start_step = step = self.global_step
         self._rate_anchor = (time.time(), step)
+        stop = False
         try:
-            while step < total and not interrupted:
+            while step < total:
+                stop = mesh.any_rank(bool(interrupted))
+                if stop:
+                    break
                 # before the step: the saved state holds exactly `step` updates
                 if step % cfg.ckpt_cycle == 0 and step != start_step:
                     self.save_checkpoint(step)
@@ -343,27 +392,24 @@ class ProgressiveGANTrainer:
                     continue
                 images = self.train_step()
                 if step % cfg.loss_cycle == 0:
-                    self.loss_collector.update(self._last_metrics)
-                    now = time.time()
-                    if self._rate_anchor and step > self._rate_anchor[1]:
-                        t0, s0 = self._rate_anchor
-                        self.loss_collector.loss_dict["imgs_per_sec"] = round(
-                            (step - s0) * self.batch_size / (now - t0), 1)
-                    self._rate_anchor = (now, step)
-                    self.logger.log(step, self.loss_collector.loss_dict)
-                    self.loss_collector.print_loss(step)
+                    metrics = self._mean_over_ranks(self._last_metrics)
+                    if self.is_master:
+                        self._log_losses(step, metrics)
                 if step % cfg.test_cycle == 0:
-                    self.save_image(images, step)
+                    if self.is_master:
+                        self.save_image(images, step)
                     if cfg.use_validation:
                         self.validation(step)
                 if cfg.fid_cycle and step % cfg.fid_cycle == 0 and step:
                     scores = self.compute_generative_metrics()
-                    self.logger.log(step, scores)
-                    print(f"step {step}: FID = {scores['fid']:.2f}  KID = {scores['kid']:.5f}")
+                    if self.is_master:
+                        self.logger.log(step, scores)
+                        print(f"step {step}: FID = {scores['fid']:.2f}  "
+                              f"KID = {scores['kid']:.5f}")
                 step += 1
                 self.global_step = step
             self.save_checkpoint(step, wait=True)
-            if interrupted:
+            if stop and self.is_master:
                 print(f"[pggan_tpu_torch] interrupted at step {step}; state "
                       f"checkpointed — resume with --ckpt_id {cfg.run_id}")
         finally:
@@ -371,6 +417,29 @@ class ProgressiveGANTrainer:
                 if handler is not None:     # None: a handler not set from Python
                     signal.signal(sig, handler)
         return self
+
+    def _mean_over_ranks(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The step's metrics averaged over the ranks (one all-reduce; the
+        rank's own without a process group). Every rank must call it."""
+        if not self.distributed:
+            return metrics
+        keys = sorted(metrics)
+        values = torch.stack([metrics[k].float() for k in keys])
+        mesh.all_reduce_mean_([values])
+        return dict(zip(keys, values))
+
+    def _log_losses(self, step: int, metrics: Dict[str, torch.Tensor]) -> None:
+        """The loss line and its `metrics.jsonl` record, with the images a
+        second of every rank since the last one."""
+        self.loss_collector.update(metrics)
+        now = time.time()
+        if self._rate_anchor and step > self._rate_anchor[1]:
+            t0, s0 = self._rate_anchor
+            self.loss_collector.loss_dict["imgs_per_sec"] = round(
+                (step - s0) * self.batch_size * self.world / (now - t0), 1)
+        self._rate_anchor = (now, step)
+        self.logger.log(step, self.loss_collector.loss_dict)
+        self.loss_collector.print_loss(step)
 
     # -- io -------------------------------------------------------------------
     def save_image(self, images: Images, step: int) -> str:
@@ -501,7 +570,14 @@ class ProgressiveGANTrainer:
         cannot read the live tensors while steps go on: the state is copied
         on the device here, before the next step is enqueued, and on the
         same stream, so the copies hold the state at `global_step`. The
-        writer then moves the copies to the host and frees them."""
+        writer then moves the copies to the host and frees them.
+
+        In a process group only rank 0 writes; with `wait=True` every rank
+        returns only once the files are written (a barrier)."""
+        if not self.is_master:
+            if wait:
+                mesh.barrier()
+            return
         if self._ckpt_future is not None:
             future, self._ckpt_future = self._ckpt_future, None
             future.result()             # one write at a time; raise its error
@@ -532,6 +608,7 @@ class ProgressiveGANTrainer:
         if wait:
             future, self._ckpt_future = self._ckpt_future, None
             future.result()
+            mesh.barrier()
 
     def load_checkpoint(self) -> None:
         """Restore args and schedule, build both networks at the saved scale,
@@ -590,10 +667,12 @@ class ProgressiveGANTrainer:
         else:
             why = ("it holds no torch generator state" if saved is None else
                    f"its generator state is for {saved['device']}, not {self.device.type}")
-            print(f"[pggan_tpu_torch] latents reseeded from (seed, step {self.global_step}): "
-                  f"{why}")
-        print(f"checkpoint {cfg.ckpt_id}@{self.global_step} restored "
-              f"(scale={self.schedule.scale_index}, alpha={self.schedule.alpha})")
+            if self.is_master:
+                print(f"[pggan_tpu_torch] latents reseeded from (seed, step "
+                      f"{self.global_step}): {why}")
+        if self.is_master:
+            print(f"checkpoint {cfg.ckpt_id}@{self.global_step} restored "
+                  f"(scale={self.schedule.scale_index}, alpha={self.schedule.alpha})")
 
     def close(self) -> None:
         """Wait for a checkpoint still being written, then stop the writer,
