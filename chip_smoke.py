@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's sampling, training, ops, evaluation, serving,
-import and data-parallel paths once on one CUDA card.
+import, data-parallel, native-loader and 1024² paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -124,7 +124,25 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      with phase 8's launches per step; the data-parallel f32 step against
      the single-process step bit for bit (TF32 off, deterministic cuDNN);
      the bf16 steps with and without the gradient all-reduce and the
-     all-reduce's own time.
+     all-reduce's own time;
+ 18. the native image loader, grain and configs/config_1024.yaml: the
+     compiler, libjpeg's and libpng's headers and grain on this machine;
+     the loader built from pggan_tpu_torch/native/loader.cpp (timed); the
+     datasets' backend, native against PIL draws at 256² and 1024² and
+     cached, stored and uncached draws against each other, on phase 12's
+     folder and 48 JPEGs of 1024² and 1280²; the pipeline alone, native
+     and PIL, 8 and 1 workers, at 256² (RAM cache) and 1024² (resized
+     store), and the trainer's imgs_per_sec over lazy R1/16 at 256² with
+     the native loader, PIL and synthetic data; `pggan_tpu_torch.train.main`
+     on config_1024.yaml's keys at full width from the high-resolution
+     folder (native loader, resized store) for a few bf16 r1 steps at
+     scale 7 (512², batch 32) and 8 (1024², batch 16) with the batches, the
+     launches, the losses and the checkpoints checked; their step times
+     and peak memory with and without R1; lrelu_pixel_norm's forward and
+     backward at [16,1024,1024,16] and [32,512,512,32] against their plain
+     versions with their times and bounds; a torch.profiler capture of the
+     scale-8 step (idle share, top kernels, layout copies); and, where
+     grain imports, a few steps with data_backend_impl: grain.
 
 The second-to-last lines are a JSON object describing the kernels and the
 card's name and power limit; the last line is
@@ -241,6 +259,35 @@ DP_STEPS, SPAWN_STEPS, DP_COMPARE_STEPS = 4, 2, 2
 # the same features up to the convolution algorithms cuDNN picks.
 INCEPTION_CARD_TOL, RANDOM_CONV_CARD_TOL = 1e-3, 1e-4
 EVAL_METRICS_FID_RTOL, EVAL_METRICS_KID_ATOL = 1e-4, 1e-5
+# Phase 18: the native image loader, grain and configs/config_1024.yaml at
+# scales 7 (512², batch 32) and 8 (1024², batch 16). HIRES_IMAGES JPEGs, half
+# of each side in HIRES_SIDES (CelebA-HQ's published 1024², and a real
+# downscale). Native against PIL draws of the same images: the resize within
+# LOADER_RESIZE_LSB (their triangle filters sum in other orders); the jitter
+# on average within LOADER_AUG_MEAN, and more than LOADER_AUG_LSB apart on at
+# most LOADER_AUG_TAIL of the values (PIL rounds to uint8 between ops and
+# turns the hue through 8-bit HSV, the native loader stays in float: on these
+# noisy images a CPU run of the same code read 1.47-1.51 on average, the
+# largest 15-18 steps, above 8 on 0.007-0.011 % of the values). A
+# cached or stored draw against an uncached one: the cache rounds to uint8
+# between the resize and the jitter, at most half a step, which three
+# factors of up to 1.2 scale to under 1 step, so within TIER_LSB after the
+# final rounding. LOADER_DRAWS images a comparison; the pipeline alone over
+# HIRES_RATE_BATCHES batches a resolution; HIRES_STEPS steps a training run;
+# the lrelu_pixel_norm kernels at HIRES_KERNEL_SHAPES, device time from
+# HIRES_DEVICE_CALLS calls a graph (each output is up to 1 GB).
+CONFIG_1024 = os.path.join("configs", "config_1024.yaml")
+HIRES_IMAGES, HIRES_SIDES, HIRES_SCALES = 48, (1024, 1280), (7, 8)
+LOADER_RESIZE_LSB, LOADER_AUG_LSB, LOADER_AUG_TAIL, LOADER_AUG_MEAN = 1, 8, 1e-3, 2.5
+TIER_LSB = 2
+LOADER_DRAWS = 12
+HIRES_RATE_BATCHES = {256: 12, 512: 6, 1024: 4}
+HIRES_STEPS, GRAIN_STEPS = 3, 3
+HIRES_KERNEL_SHAPES = [(16, 1024, 1024, 16), (32, 512, 512, 32)]
+HIRES_DEVICE_CALLS = 5
+# cuDNN and PyTorch kernels that only move data between layouts (the
+# work hires_pack removed on the TPU): matched in the profile's kernel names.
+LAYOUT_COPY_NAMES = ("copy", "transpose", "nchwToNhwc", "nhwcToNchw")
 
 # One f32 step (TF32 off), kernel path vs plain path (phase 9): bounds on
 # the relative loss difference and on the gradient difference relative to
@@ -2235,8 +2282,8 @@ def run_cache_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card, bf16_s
     check(rc == 0, f"the augmented cache run returned {rc}")
     cache_line(lines)
     check_batches(batches, FOLDER_STEPS)
-    dataset = ImageFolderDataset([images], SCALE)
-    on_cpu = DeviceDataCache(dataset, "cpu")
+    on_cpu = DeviceDataCache(ImageFolderDataset([images], SCALE), "cpu")
+    dataset = ImageFolderDataset([images], SCALE, use_native=False)
     worst, mean, pil_worst, pil_mean = 0, 0.0, 0, 0.0
     for batch, (idxs, seeds) in zip(batches, calls):
         got = batch.cpu().numpy().astype(int)
@@ -2797,6 +2844,539 @@ def time_data_parallel(step_mod, mesh, cfg, arrays_g, arrays_d, gen, card):
     return step_ms, total_ms
 
 
+def step_launches(scale):
+    """Kernel launches of one r1 step at `scale`: phase 8's at scale 6, with
+    the G epilogues (two convs a block) counted for `scale`'s blocks."""
+    epilogues = 1 + 2 * scale
+    return dict(STEP_LAUNCHES, lrelu_pixel_norm=2 * epilogues, lrelu_pixel_norm_bwd=epilogues)
+
+
+def loader_env():
+    """[18 env]: the compiler, libjpeg's and libpng's headers, and grain.
+    Returns whether grain imports."""
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, timeout=60)
+    headers = ", ".join(f"/usr/include/{h} {'present' if os.path.exists(f'/usr/include/{h}') else 'missing'}"
+                        for h in ("jpeglib.h", "png.h"))
+    try:
+        import grain  # noqa: F401
+        grain_ok = True
+    except ImportError:
+        grain_ok = False
+    print(f"[18 env] {(gxx.stdout.splitlines() or ['g++: ' + gxx.stderr.strip()])[0]}; "
+          f"{headers}; grain {'imports' if grain_ok else 'is not installed'}")
+    return grain_ok
+
+
+def build_loader():
+    """[18 build]: the process's native loader, built at its first use (here
+    or by phase 12's dataset) from pggan_tpu_torch/native/loader.cpp into
+    pggan_tpu_torch/_build/; and the same library built again into an empty
+    directory, timed. Returns its decoder ('native' or 'PIL')."""
+    from pggan_tpu_torch.native import NativeImageLoader, build
+
+    lib = build.get_loader_lib()
+    check(lib is not None, "the native loader did not build")
+    codecs = bool(lib.pggan_has_codecs())
+    path = build.library_path(codecs)
+    check(os.path.exists(path) and os.path.dirname(path) == os.path.join(
+        REPO, "pggan_tpu_torch", "_build"), f"loader library {path}")
+    with tempfile.TemporaryDirectory(prefix="pggan_loader_") as fresh, \
+            mock.patch.object(build, "BUILD_DIR", fresh):
+        t0 = time.perf_counter()
+        build.build_library(codecs)
+        seconds = time.perf_counter() - t0
+    decoder = NativeImageLoader(4).decoder
+    flags = build.FLAGS + (build.CODEC_LIBS if codecs else build.NO_CODECS)
+    print(f"[18 build] {os.path.relpath(path, REPO)} from pggan_tpu_torch/native/loader.cpp; "
+          f"a build into an empty directory took {seconds:.2f} s (g++ {' '.join(flags)}); "
+          + ("libjpeg/libpng decode in C++" if codecs else
+             "built without the codecs: PIL decodes, C++ resizes and jitters"))
+    return decoder
+
+
+def write_hires_folder(root, count=HIRES_IMAGES, seed=1024):
+    """`count` JPEGs, alternately HIRES_SIDES[0]² and HIRES_SIDES[1]², in two
+    subdirectories: a smooth colour field plus noise (write_image_folder's
+    recipe)."""
+    from PIL import Image
+    rs = np.random.RandomState(seed)
+    for i in range(count):
+        side = HIRES_SIDES[i % 2]
+        sub = os.path.join(root, f"part{i % 2}")
+        os.makedirs(sub, exist_ok=True)
+        low = Image.fromarray(rs.randint(0, 256, (12, 12, 3), dtype=np.uint8)).resize(
+            (side, side), Image.BILINEAR)
+        noise = rs.randint(-24, 25, (side, side, 3))
+        arr = np.clip(np.asarray(low, np.int16) + noise, 0, 255).astype(np.uint8)
+        Image.fromarray(arr).save(os.path.join(sub, f"{i:03d}.jpg"), quality=90)
+
+
+def pil_only():
+    """Datasets built inside take the PIL path: the loader reads as not
+    built (what `use_native=None` does where it does not build)."""
+    from pggan_tpu_torch.native import build
+    return mock.patch.object(build, "get_loader_lib", return_value=None)
+
+
+def compare_loaders(folders, tmp):
+    """[18 loader]: the backend for use_native None and True; native against
+    PIL draws at 256² (phase 12's 320² folder and the high-resolution one)
+    and 1024²; cached, stored and uncached native draws."""
+    from pggan_tpu_torch.data.dataset import ImageFolderDataset
+
+    for use_native in (None, True):
+        ds = ImageFolderDataset([folders[256]], SCALE, use_native=use_native)
+        check(ds.backend == "native", f"use_native={use_native}: backend {ds.backend}")
+    rows = []
+    for label, root, scale in (("320² → 256²", folders[256], 6),
+                               ("1024²/1280² → 256²", folders[1024], 6),
+                               ("1024²/1280² → 1024²", folders[1024], 8)):
+        res = 4 * 2 ** scale
+        picks = range(LOADER_DRAWS)
+        native = ImageFolderDataset([root], scale, use_native=True, cache_decoded=True)
+        pil = ImageFolderDataset([root], scale, use_native=False, cache_decoded=True)
+        resize = max(int(np.abs(native.resized_array(i).astype(int)
+                                - pil.resized_array(i).astype(int)).max()) for i in picks)
+        aug = np.stack([np.abs(native.get(i, np.random.RandomState(i)).astype(int)
+                               - pil.get(i, np.random.RandomState(i)).astype(int))
+                        for i in picks])
+        check(resize <= LOADER_RESIZE_LSB, f"{label}: native vs PIL resize max {resize}")
+        tail = float(np.mean(aug > LOADER_AUG_LSB))
+        check(tail <= LOADER_AUG_TAIL and aug.mean() <= LOADER_AUG_MEAN,
+              f"{label}: native vs PIL augmented mean {aug.mean():.3f}, above "
+              f"{LOADER_AUG_LSB} on {100 * tail:.4f} %")
+        rows.append(f"{label} ({res}²): resize max {resize} (bound {LOADER_RESIZE_LSB}), "
+                    f"augmented mean {aug.mean():.3f} (bound {LOADER_AUG_MEAN}), above "
+                    f"{LOADER_AUG_LSB} on {100 * tail:.4f} % (bound {100 * LOADER_AUG_TAIL:g} "
+                    f"%), max {aug.max()}")
+    print(f"[18 loader] dataset backend 'native' for use_native None and True; native vs PIL "
+          f"over {LOADER_DRAWS} images: " + "; ".join(rows))
+    tiers = {}
+    for res, scale in ((256, 6), (1024, 8)):
+        cached = ImageFolderDataset([folders[1024]], scale, cache_decoded=True)
+        stored = ImageFolderDataset([folders[1024]], scale, resized_store=True,
+                                    store_dir=os.path.join(tmp, f"tier_store_{res}"))
+        uncached = ImageFolderDataset([folders[1024]], scale, cache_decoded=False)
+        worst, twos = 0, 0.0
+        for i in range(LOADER_DRAWS):
+            draws = [ds.get(i, np.random.RandomState(100 + i)).astype(int)
+                     for ds in (cached, stored, uncached)]
+            check(np.array_equal(draws[0], draws[1]), f"{res}²: stored draw {i} differs "
+                                                      f"from the cached one")
+            delta = np.abs(draws[0] - draws[2])
+            worst, twos = max(worst, int(delta.max())), twos + float(np.mean(delta == 2))
+        check(worst <= TIER_LSB, f"{res}²: cached vs uncached max {worst}")
+        tiers[res] = (worst, twos / LOADER_DRAWS)
+    print(f"[18 loader] native draws over {LOADER_DRAWS} images: stored = cached byte for "
+          f"byte; cached vs uncached " + ", ".join(
+              f"{res}² max {w} (bound {TIER_LSB}; 2 steps on {100 * s:.4f} % of values)"
+              for res, (w, s) in tiers.items()))
+
+
+def pipeline_rate(dataset, batch, workers, batches):
+    """img/s of the pipeline alone onto the card (2 batches of prefetch)
+    over `batches` batches after the first; checks the batches."""
+    from pggan_tpu_torch.data.dataset import split_dataset
+    from pggan_tpu_torch.data.pipeline import DataPipeline
+
+    indices, _ = split_dataset(len(dataset))
+    with DataPipeline(dataset, batch, indices=indices, num_workers=workers, prefetch_depth=2,
+                      seed=0, device=DEVICE) as pipe:
+        next(pipe)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            out = next(pipe)
+        torch.cuda.synchronize()
+        rate = batches * batch / (time.perf_counter() - t0)
+    res = dataset.resolution
+    check(out.dtype == torch.uint8 and tuple(out.shape) == (batch, res, res, 3)
+          and out.device.type == torch.device(DEVICE).type, f"pipeline batch {out.dtype} {tuple(out.shape)}")
+    return rate
+
+
+def time_loader_pipelines(folders, tmp, card):
+    """[18 rates]: the pipeline alone, native and PIL, 8 and 1 workers, at
+    256² (RAM cache, phase 12's folder) and 1024² (resized store), and
+    native with 8 workers at 512² (resized store). Returns {res: native img/s
+    with 8 workers}."""
+    from pggan_tpu_torch.data.dataset import ImageFolderDataset
+
+    rates, native8 = [], {}
+    for res, scale, batch in ((256, 6, BATCH), (512, 7, 32), (1024, 8, 16)):
+        loaders = ("native", "PIL") if res != 512 else ("native",)
+        for loader in loaders:
+            kw = (dict(cache_decoded=True) if res == 256 else
+                  dict(resized_store=True, store_dir=os.path.join(tmp, f"store_{loader}")))
+            with (pil_only() if loader == "PIL" else contextlib.nullcontext()):
+                ds = ImageFolderDataset([folders[256 if res == 256 else 1024]], scale, **kw)
+            check(ds.backend == loader, f"{res}²: backend {ds.backend}, expected {loader}")
+            if res == 256:
+                for i in range(len(ds)):        # the RAM cache filled, as after an epoch
+                    ds.resized_array(i)
+            for workers in ((8, 1) if res != 512 else (8,)):
+                rate = pipeline_rate(ds, batch, workers, HIRES_RATE_BATCHES[res])
+                if loader == "native" and workers == 8:
+                    native8[res] = rate
+                rates.append(f"{res}² {loader} {workers} worker(s) {rate:.1f} img/s")
+    print(f"[18 rates] card: {card}")
+    print(f"[18 rates] data pipeline alone onto the card (augmented, 2 batches of prefetch; "
+          f"256² batch {BATCH} from the RAM cache, 512² batch 32 and 1024² batch 16 from the "
+          f"resized store): " + "; ".join(rates))
+    return native8
+
+
+def time_loader_trainer(train_mod, kernels, ckpt_lib, cfg, depths, folders, tmp, card):
+    """[18 rates]: the trainer's imgs_per_sec over lazy R1/16 at 256² (phase
+    14's recipe, no device cache) with the native loader, PIL and
+    synthetic data."""
+    _, _, _, start = train_checkpoint(ckpt_lib, cfg, depths, tmp)
+    base = {"save_root": tmp, "data_backend": "folder", "dataset_root_list": [folders[256]],
+            "batch_per_gpu": BATCH, "num_data_workers": 8, "prefetch_depth": 2,
+            "r1_interval": LAZY_R1, "loss_cycle": LAZY_R1, "test_cycle": NEVER,
+            "ckpt_cycle": NEVER}
+    first = -(-start // LAZY_R1) * LAZY_R1
+    end = first + LAZY_R1 * LAZY_WINDOWS + 1
+    rates = {}
+    for name, loader, extra in (("lazy_native", "native loader", ()),
+                                ("lazy_pil", "PIL loader", ()),
+                                ("lazy_synth", None, ("--data_backend", "synthetic"))):
+        config = os.path.join(tmp, f"{name}.yaml")
+        with open(config, "w") as f:                    # JSON is YAML
+            json.dump(base, f)
+        with (pil_only() if name == "lazy_pil" else contextlib.nullcontext()):
+            rc, _, _, lines, _, _ = folder_run(train_mod, kernels, [
+                name, "--config", config, "--ckpt_id", "smoke_init", "--max_step", str(end),
+                "--compute_dtype", "bfloat16", "--device", DEVICE, *extra])
+        check(rc == 0, f"{name} returned {rc}")
+        if loader:
+            check(any(f"({loader}" in line for line in lines), f"{name}: no '{loader}' line")
+        with open(os.path.join(tmp, name, "metrics.jsonl")) as f:
+            steps_rates = [json.loads(line) for line in f]
+        check([m["step"] for m in steps_rates] == list(range(first, end, LAZY_R1)),
+              f"{name}: loss lines at {[m['step'] for m in steps_rates]}")
+        rates[name[5:]] = [m["imgs_per_sec"] for m in steps_rates[1:]]
+    synth = np.mean(rates["synth"])
+    print(f"[18 rates] lazy R1/{LAZY_R1} through the trainer (phase 14's recipe, no device "
+          f"cache), bf16, {RES}x{RES}, batch {BATCH}, imgs_per_sec over steps {first}-"
+          f"{end - 1}: " + "; ".join(f"{k} {v} (mean {np.mean(v):.1f} = "
+                                     f"{100 * (np.mean(v) / synth - 1):+.1f} % of synthetic)"
+                                     for k, v in rates.items()) + f" ({card})")
+
+
+def hires_checkpoint(ckpt_lib, cfg, scale, tmp, run_id):
+    """A JAX-format G+D checkpoint of `cfg` (config_1024.yaml's model) at
+    `scale`, numpy-seeded weights, fresh Adam; the schedule inside the
+    scale at alpha 0.5 with no jump within the runs. Returns (G arrays, D
+    arrays, start step)."""
+    depths = [int(d) for d in cfg.depths]
+    arrays_g = numpy_generator_arrays(1234 + scale, int(cfg.latent_dim), depths, scale)
+    arrays_d = numpy_discriminator_arrays(4321 + scale, depths, scale)
+    args = cfg.to_dict()
+    args.update(save_root=tmp, use_mGPU=False)
+    steps = [int(n) for n in args["max_step_at_scale"]]
+    scale_end = sum(steps[:scale + 1])
+    start = scale_end - steps[scale] + int(args["alpha_jump_start"][scale]) + 199 * 100 + 50
+    schedule = {"scale_index": scale, "alpha": ALPHA, "alpha_index": 200,
+                "alpha_jump_value": 1.0 / 400, "next_scale_jump_step": scale_end,
+                "next_alpha_jump_step": start + 50}
+    for name, arrays in (("G", arrays_g), ("D", arrays_d)):
+        ckpt_lib.save_checkpoint(tmp, run_id, name, start, params=arrays,
+                                 opt=fresh_adam_arrays(arrays),
+                                 meta={"args": args, "schedule": schedule})
+    return arrays_g, arrays_d, start
+
+
+def run_hires_train(train_mod, kernels, ckpt_lib, cfg, folder, tmp):
+    """[18 train]: `pggan_tpu_torch.train.main` on config_1024.yaml's keys at
+    full width from the high-resolution folder through the native loader
+    and the resized store, HIRES_STEPS bf16 r1 steps at scales 7 and 8.
+    Returns {scale: (G arrays, D arrays)}."""
+    import yaml
+
+    with open(os.path.join(REPO, CONFIG_1024)) as f:
+        keys = yaml.safe_load(f)
+    keys.update(save_root=tmp, dataset_root_list=[folder], data_backend="folder",
+                resized_store=True, resized_store_dir=os.path.join(tmp, "store"),
+                loss_cycle=1, test_cycle=NEVER, ckpt_cycle=NEVER)
+    config = os.path.join(tmp, "config_1024.yaml")
+    with open(config, "w") as f:
+        json.dump(keys, f)                          # JSON is YAML
+    arrays = {}
+    for scale in HIRES_SCALES:
+        res, batch = 4 * 2 ** scale, int(cfg.batch_schedule[scale])
+        arrays_g, arrays_d, start = hires_checkpoint(ckpt_lib, cfg, scale, tmp, f"init{scale}")
+        arrays[scale] = (arrays_g, arrays_d)
+        run, end = f"hires{scale}", start + HIRES_STEPS
+        rc, batches, run_cfg, lines, launches, seconds = folder_run(train_mod, kernels, [
+            run, "--config", config, "--ckpt_id", f"init{scale}", "--max_step", str(end),
+            "--device", DEVICE, "--no_mGPU"])
+        for line in lines:
+            print(f"[18 train]   {line}")
+        check(rc == 0, f"scale {scale}: train main returned {rc}")
+        check(run_cfg["compute_dtype"] == "bfloat16" and run_cfg["loss_mode"] == "r1"
+              and int(run_cfg["r1_interval"]) == 1, f"scale {scale}: run config")
+        banner = [line for line in lines if "images constructed for the training" in line]
+        check(len(banner) == 1 and "(native loader" in banner[0] and "resized store" in
+              banner[0], f"scale {scale}: dataset lines {banner}")
+        check(len(batches) == HIRES_STEPS, f"scale {scale}: {len(batches)} batches")
+        for b in batches:
+            check(b.dtype == torch.uint8 and tuple(b.shape) == (batch, res, res, 3)
+                  and b.device.type == torch.device(DEVICE).type,
+                  f"batch {b.dtype} {tuple(b.shape)} {b.device}")
+        want = {k: n * HIRES_STEPS for k, n in step_launches(scale).items()}
+        check(launches == want, f"scale {scale}: launches {launches}, expected {want}")
+        losses = [line for line in lines if line.startswith("lossD:")]
+        check(len(losses) == HIRES_STEPS, f"scale {scale}: {len(losses)} loss lines")
+        for line in losses:
+            d, g = line.replace("lossD:", "").split("| lossG:")
+            check(np.isfinite(float(d)) and np.isfinite(float(g)), f"loss line {line!r}")
+        for name, before in (("G", arrays_g), ("D", arrays_d)):
+            params, opt, meta = ckpt_lib.load_checkpoint(tmp, run, name, end)
+            check(set(params) == set(before) and int(opt["0/count"]) == HIRES_STEPS
+                  and meta["schedule"]["scale_index"] == scale,
+                  f"scale {scale}: {name} checkpoint at {end}")
+        print(f"[18 train] config_1024.yaml through pggan_tpu_torch.train.main --no_mGPU: "
+              f"scale {scale} ({res}x{res}), batch {batch}, bf16, r1 every step, "
+              f"{HIRES_STEPS} steps from step {start} in {seconds:.2f} s (checkpoint load, "
+              f"resized store, steps, checkpoint); every batch uint8 [{batch},{res},{res},3] "
+              f"on {batches[0].device}; launches {launches} = {HIRES_STEPS} x "
+              f"{step_launches(scale)}; losses finite; rank 0's checkpoint at {end} reloads "
+              f"with Adam count {HIRES_STEPS}")
+    return arrays
+
+
+def time_hires_steps(step_mod, cfg, arrays, native8, gen, card):
+    """[18 times]: step ms, img/s and peak memory at scales 7 and 8, bf16,
+    with and without R1, and whether the native pipeline keeps up; f32 with
+    TF32 off with R1 at scale 8 where 3.4x the bf16 peak (256²'s ratio,
+    phase 10) fits. Returns the scale-8 bf16 state and batch."""
+    for scale in HIRES_SCALES:
+        res, batch = 4 * 2 ** scale, int(cfg.batch_schedule[scale])
+        run_cfg = copy.deepcopy(cfg)
+        run_cfg.update(batch_per_gpu=batch, compute_dtype="bfloat16")
+        state = train_state(step_mod, run_cfg, *arrays[scale])
+        images = torch.randint(0, 256, (batch, res, res, 3), generator=gen, device=DEVICE,
+                               dtype=torch.uint8)
+        peaks = {}
+        for r1 in (True, False):
+            step = step_mod.make_train_step(run_cfg, scale, include_r1=r1)
+            for _ in range(2):
+                step(state, images, ALPHA)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            n = 4
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step(state, images, ALPHA)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / n * 1e3
+            peaks[r1] = torch.cuda.max_memory_allocated() / 2 ** 20
+            rate = batch / ms * 1e3
+            print(f"[18 times] config_1024 step {res}x{res} batch {batch} bf16, "
+                  f"{'R1' if r1 else 'no R1'}: {ms:.2f} ms = {rate:.1f} img/s; peak memory "
+                  f"{peaks[r1]:.0f} MiB (host clock over {n} steps after 2 warm-up); the "
+                  f"native pipeline alone {native8[res]:.1f} img/s keeps up: "
+                  f"{'yes' if native8[res] >= rate else 'no'} ({native8[res] / rate:.2f}x) "
+                  f"({card})")
+    f32_mib = 3.4 * peaks[True]
+    free = torch.cuda.mem_get_info()[1] / 2 ** 20
+    if f32_mib < 0.85 * free:
+        f32_cfg = copy.deepcopy(run_cfg)
+        f32_cfg["compute_dtype"] = "float32"
+        del state
+        torch.cuda.empty_cache()
+        f32_state = train_state(step_mod, f32_cfg, *arrays[8])
+        step = step_mod.make_train_step(f32_cfg, 8, include_r1=True)
+        step(f32_state, images, ALPHA)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(f32_state, images, ALPHA)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 2 * 1e3
+        print(f"[18 times] config_1024 step 1024x1024 batch 16 f32 TF32 off, R1: {ms:.2f} ms "
+              f"= {16 / ms * 1e3:.1f} img/s; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB (host clock over 2 "
+              f"steps after 1 warm-up; predicted {f32_mib:.0f} MiB) ({card})")
+        del f32_state
+        torch.cuda.empty_cache()
+        state = train_state(step_mod, run_cfg, *arrays[8])
+    else:
+        print(f"[18 times] f32 TF32 off at 1024x1024 not run: 3.4 x the bf16 R1 peak = "
+              f"{f32_mib:.0f} MiB against {free:.0f} MiB on the card")
+    return state, images, run_cfg
+
+
+def time_hires_kernels(kernels, gen, card):
+    """[18 kernels]: lrelu_pixel_norm's forward and backward against their
+    plain versions at HIRES_KERNEL_SHAPES, f32 and bf16: max |diff|, call
+    ms, device ms and the bound. Returns {(name, shape, dtype): (call ms,
+    device ms, plain ms, bound ms)}."""
+    times = {}
+    for shape, dt in itertools.product(HIRES_KERNEL_SHAPES, (torch.float32, torch.bfloat16)):
+        x, g = nhwc(shape, dt, gen), nhwc(shape, dt, gen)
+        n, es = x.numel(), x.element_size()
+        for name, kernel, plain, tol, nbytes, flops in (
+                ("lrelu_pixel_norm", lambda: kernels.lrelu_pixel_norm(x),
+                 lambda: kernels.lrelu_pixel_norm_plain(x), TOL[dt], 2 * n * es, 4 * n),
+                ("lrelu_pixel_norm_bwd", lambda: kernels.lrelu_pixel_norm_bwd(x, g),
+                 lambda: kernels.lrelu_pixel_norm_bwd_plain(x, g), BWD_TOL[dt],
+                 3 * n * es, 12 * n)):
+            with torch.no_grad():
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, **tol,
+                                           msg=lambda m: f"{name} {list(shape)}: {m}")
+                err = float((got.float() - want.float()).abs().max())
+                del got, want
+                plain_ms, kernel_ms = abba_ms(plain, kernel, iters=10)
+                dev = device_ms(kernel, kernels, name, calls=HIRES_DEVICE_CALLS)
+            b_ms, b_by = bound_ms(nbytes, flops)
+            times[(name, shape, dt)] = (kernel_ms, dev, plain_ms, b_ms)
+            print(f"[18 kernels] {name} {list(shape)} {str(dt)[6:]}: max |diff| to the plain "
+                  f"version {err:.3g}; kernel call {kernel_ms:.4f} ms, device {dev:.4f} ms "
+                  f"= {100 * b_ms / dev:.0f} % of the bound {b_ms:.4f} ms ({b_by}); plain "
+                  f"call {plain_ms:.4f} ms ({card})")
+        del x, g
+        torch.cuda.empty_cache()
+    return times
+
+
+def profile_rows(run, steps=2):
+    """`run` profiled over `steps` calls (torch.profiler, CPU and CUDA
+    activities), as tools/profile_torch_step.py does. Returns (wall ms,
+    busy ms, summed kernel ms, [(ms, calls, kernel name)] a call)."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in events:
+        by_name[e.name][0] += e.time_range.elapsed_us()
+        by_name[e.name][1] += 1
+    rows = sorted(((us / 1e3 / steps, count // steps, name)
+                   for name, (us, count) in by_name.items()), reverse=True)
+    return wall_ms, busy_us / 1e3 / steps, sum(r[0] for r in rows), rows
+
+
+def profile_hires_step(step_mod, cfg, state, images, card):
+    """[18 profile]: the scale-8 bf16 step with and without R1 under
+    torch.profiler: idle share, the top 8 kernels, the layout copies."""
+    for r1 in (True, False):
+        step = step_mod.make_train_step(cfg, 8, include_r1=r1)
+        step(state, images, ALPHA)
+        torch.cuda.synchronize()
+        wall, busy, summed, rows = profile_rows(lambda: step(state, images, ALPHA))
+        check(busy > 0 and rows, "the profile saw no device time")
+        copies = [(ms, n, name) for ms, n, name in rows
+                  if any(key.lower() in name.lower() for key in LAYOUT_COPY_NAMES)]
+        copy_ms = sum(ms for ms, _, _ in copies)
+        print(f"[18 profile] config_1024 step 1024x1024 batch {images.shape[0]} bf16 "
+              f"{'with' if r1 else 'without'} R1 ({card}): wall {wall:.2f} ms/step under the "
+              f"profiler; device busy {busy:.2f} ms/step (idle "
+              f"{100 * max(0.0, 1 - busy / wall):.1f} %); kernel time summed {summed:.2f} "
+              f"ms/step; layout copies {copy_ms:.2f} ms = {100 * copy_ms / summed:.1f} % "
+              f"of it in {sum(n for _, n, _ in copies)} launches")
+        for ms, count, name in rows[:8]:
+            print(f"[18 profile]   {ms:9.3f} ms {100 * ms / summed:5.1f} % x{count:<4d} "
+                  f"{name[:110]}")
+        for ms, count, name in copies[:4]:
+            print(f"[18 profile]   copy {ms:9.3f} ms {100 * ms / summed:5.1f} % x{count:<4d} "
+                  f"{name[:100]}")
+
+
+def run_grain_train(train_mod, kernels, ckpt_lib, cfg, depths, folder, tmp, card):
+    """[18 grain]: GRAIN_STEPS steps with data_backend_impl: grain at 256²
+    from phase 12's folder, the batches on the card, and grain's rate
+    alone."""
+    from pggan_tpu_torch.data.dataset import ImageFolderDataset, split_dataset
+    from pggan_tpu_torch.data.grain_pipeline import GrainPipeline
+
+    _, _, _, start = train_checkpoint(ckpt_lib, cfg, depths, tmp)
+    config = os.path.join(tmp, "grain.yaml")
+    with open(config, "w") as f:                    # JSON is YAML
+        json.dump({"save_root": tmp, "data_backend": "folder", "dataset_root_list": [folder],
+                   "batch_per_gpu": BATCH, "data_backend_impl": "grain",
+                   "loss_cycle": 1, "test_cycle": NEVER, "ckpt_cycle": NEVER}, f)
+    batches = []
+    grain_next = GrainPipeline.__next__
+
+    def recording_next(self):
+        batch = grain_next(self)
+        batches.append(batch)
+        return batch
+    with mock.patch.object(GrainPipeline, "__next__", recording_next):
+        rc, host_batches, _, lines, launches, seconds = folder_run(train_mod, kernels, [
+            "grain", "--config", config, "--ckpt_id", "smoke_init", "--max_step",
+            str(start + GRAIN_STEPS), "--compute_dtype", "bfloat16", "--device", DEVICE])
+    check(rc == 0 and not host_batches and len(batches) == GRAIN_STEPS,
+          f"grain run: rc {rc}, {len(batches)} grain batches, {len(host_batches)} thread ones")
+    for b in batches:
+        check(b.dtype == torch.uint8 and tuple(b.shape) == (BATCH, RES, RES, 3)
+              and b.device.type == torch.device(DEVICE).type, f"grain batch {b.dtype} {tuple(b.shape)}")
+    want = {k: n * GRAIN_STEPS for k, n in STEP_LAUNCHES.items()}
+    check(launches == want, f"grain run launches {launches}, expected {want}")
+    dataset = ImageFolderDataset([folder], SCALE, cache_decoded=True)
+    indices, _ = split_dataset(len(dataset))
+    with GrainPipeline(dataset, BATCH, indices=indices, num_workers=8, device=DEVICE) as pipe:
+        for _ in range(len(indices) // BATCH + 1):     # an epoch: the cache filled
+            next(pipe)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HIRES_RATE_BATCHES[256]):
+            next(pipe)
+        torch.cuda.synchronize()
+        rate = HIRES_RATE_BATCHES[256] * BATCH / (time.perf_counter() - t0)
+    print(f"[18 grain] data_backend_impl: grain, {GRAIN_STEPS} bf16 r1 steps at {RES}x{RES} "
+          f"batch {BATCH} in {seconds:.2f} s: every batch uint8 on {batches[0].device}, "
+          f"launches {launches}; GrainPipeline alone (8 threads, native loader) "
+          f"{rate:.1f} img/s ({card})")
+
+
+def run_hires_phase(train_mod, kernels, ckpt_lib, step_mod, cfg, depths, tmp, card, gen):
+    """Phase 18: the native loader, grain, and config_1024.yaml at scales 7
+    and 8. Returns the [18 kernels] times."""
+    from pggan_tpu_torch.config import Config
+
+    t_phase = time.perf_counter()
+    grain_ok = loader_env()
+    build_loader()
+    folders = {256: os.path.join(tmp, "images_320"), 1024: os.path.join(tmp, "images_hires")}
+    write_image_folder(folders[256])
+    write_hires_folder(folders[1024])
+    compare_loaders(folders, tmp)
+    native8 = time_loader_pipelines(folders, tmp, card)
+    time_loader_trainer(train_mod, kernels, ckpt_lib, cfg, depths, folders, tmp, card)
+    cfg1024 = Config.from_yaml(os.path.join(REPO, CONFIG_1024))
+    check([int(d) for d in cfg1024.depths] == [512, 512, 512, 512, 256, 128, 64, 32, 16]
+          and {int(k): int(v) for k, v in cfg1024.batch_schedule.items()} == {7: 32, 8: 16},
+          f"{CONFIG_1024}: depths {cfg1024.depths}, batch_schedule {cfg1024.batch_schedule}")
+    arrays = run_hires_train(train_mod, kernels, ckpt_lib, cfg1024, folders[1024], tmp)
+    state, images, run_cfg = time_hires_steps(step_mod, cfg1024, arrays, native8, gen, card)
+    profile_hires_step(step_mod, run_cfg, state, images, card)
+    del state, images
+    torch.cuda.empty_cache()
+    times = time_hires_kernels(kernels, gen, card)
+    if grain_ok:
+        run_grain_train(train_mod, kernels, ckpt_lib, cfg, depths, folders[256], tmp, card)
+    else:
+        print("[18 grain] grain is not installed on this machine: the grain phase did not run "
+              "(not a failure caught)")
+    print(f"[18 hires] phase 18 took {time.perf_counter() - t_phase:.2f} s")
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2914,6 +3494,10 @@ def main() -> int:
             time_data_parallel(step_mod, mesh, step_cfg, arrays_g, arrays_d, gen, card)
         finally:
             mesh.shutdown()
+
+    # ---- the native loader, grain, and config_1024.yaml at 512² and 1024² ----
+    with tempfile.TemporaryDirectory(prefix="pggan_smoke_hires_") as tmp:
+        run_hires_phase(train_mod, kernels, ckpt_lib, step_mod, cfg, depths, tmp, card, gen)
 
     # Every kernel of the three paths at its largest f32 shape on them;
     # `launches` is the training run's count (the demo's is checked in

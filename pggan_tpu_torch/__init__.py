@@ -4,7 +4,8 @@ The JAX package `pggan_tpu` is the reference; this package keeps its module
 names so each counterpart is easy to find. Ported so far: generator
 sampling (`pggan_tpu_torch.demo`), training (`pggan_tpu_torch.train`, the
 r1 and wgangp train step, the trainer with lazy R1, folder and synthetic
-data through a prefetching pipeline, sample grids, metrics, SIGTERM
+data through a prefetching pipeline or grain's, the native C++ image loader
+(`pggan_tpu_torch.native`), sample grids, metrics, SIGTERM
 checkpoints and exact resume, validation and FID/KID, data-parallel
 training on several cards with `--use_mGPU`, `pggan_tpu_torch.parallel`),
 the import of a reference-trained PyTorch checkpoint

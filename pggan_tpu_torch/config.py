@@ -76,13 +76,14 @@ _DEFAULTS: Dict[str, Any] = {
     "compute_dtype": "float32",       # 'float32' | 'bfloat16'
     "impl": "xla",                    # JAX package only
     "data_backend": "auto",           # 'auto' | 'folder' | 'synthetic'
-    "data_backend_impl": "threads",   # JAX package only ('grain')
+    "data_backend_impl": "threads",   # 'threads' | 'grain' (data/grain_pipeline.py)
     "synthetic_dataset_size": 4096,
     "num_data_workers": 8,
     "prefetch_depth": 2,
-    # folder data (`data/dataset.py`): hflip + color jitter, the resized
-    # images decoded once a scale when they fit decode_cache_mb, else the
-    # on-disk resized store (`data/resized_store.py`)
+    # folder data (`data/dataset.py`, the native C++ loader when it builds,
+    # else PIL): hflip + color jitter, the resized images decoded once a
+    # scale when they fit decode_cache_mb, else the on-disk resized store
+    # (`data/resized_store.py`)
     "augment": True,
     "cache_decoded": "auto",          # 'auto' | True | False
     "decode_cache_mb": 8192,
@@ -108,7 +109,7 @@ _DEFAULTS: Dict[str, Any] = {
     # models/generator.py for how each maps onto the two exact forms.
     "fused_scale": "dilated",
     "hires_pack": "auto",
-    # FID / KID (not ported: the trainer refuses fid_cycle > 0)
+    # FID / KID every fid_cycle steps (0 = off; `metrics/`)
     "fid_cycle": 0,
     "fid_samples": 512,
     "fid_extractor": "random_conv",

@@ -5,14 +5,15 @@
     the scale's resolution, then flipped and colour-jittered from the
     sample's own `RandomState`, in the JAX package's order of draws; the
     resized images are decoded once a scale into RAM when they fit
-    `decode_cache_mb`, else read from the on-disk resized store;
+    `decode_cache_mb`, else read from the on-disk resized store. The work
+    runs in the native C++ loader (`pggan_tpu_torch/native/`) whenever it
+    builds, as in the JAX package, else in PIL;
   * `SyntheticDataset`: a fixed random image per index, no filesystem;
   * `split_dataset`: the 70/30 index split; `build_dataset`: the factory.
 
 Images stay uint8 [R, R, 3] on the host; the train step normalises them on
-the device. Only the PIL path is ported: the JAX package's C++ loader
-(`pggan_tpu/native/`) is not, and `use_native=True` raises. The batches
-come from `data/pipeline.py:DataPipeline`.
+the device. The batches come from `data/pipeline.py:DataPipeline` or
+`data/grain_pipeline.py:GrainPipeline`.
 """
 
 from __future__ import annotations
@@ -72,14 +73,22 @@ def _apply_color_jitter(img: Image.Image, rng: np.random.RandomState,
 class ImageFolderDataset:
     """A folder of images as augmented uint8 [R, R, 3] samples.
 
+    `use_native` (`pggan_tpu/data/dataset.py:108-118`): None takes the
+    native loader when it builds, else PIL; True raises RuntimeError when it
+    does not build; False takes PIL. The two differ by design: the native
+    loader jitters in float and rounds once, PIL rounds to uint8 between
+    ops (loader.cpp's header); each equals the JAX package's same path byte
+    for byte.
+
     Decoding and resizing is the dominant host cost, and the progressive
     schedule revisits every image many times a scale. So when the resized
     images of a scale fit `decode_cache_mb` (`cache_decoded='auto'`), each
     is decoded once a scale and the per-draw flip and jitter run on the
-    cached array; the cache quantises to uint8 where the PIL pipeline does
-    anyway (after the resize), so a cached draw equals an uncached one.
-    Beyond the budget the resized store, a [N, R, R, 3] memmap on disk built
-    once, takes its place when `store_dir` is known."""
+    cached array. The cache quantises to uint8 after the resize, where the
+    PIL pipeline does anyway, so a cached PIL draw equals an uncached one;
+    a native one is within 1 step of 255 of it. Beyond the budget the
+    resized store, a [N, R, R, 3] memmap on disk built once, takes its
+    place when `store_dir` is known."""
 
     def __init__(self, dataset_root_list: Sequence[str], scale_index: int = 0,
                  *, is_master: bool = False, augment: bool = True,
@@ -87,14 +96,19 @@ class ImageFolderDataset:
                  use_native: Optional[bool] = None,
                  cache_decoded="auto", decode_cache_mb: int = 8192,
                  resized_store="auto", store_dir: Optional[str] = None):
-        if use_native:
-            raise ValueError("the native image loader is not ported to "
-                             "pggan_tpu_torch; only the PIL path is")
         self.paths = list(paths) if paths is not None else list_image_paths(dataset_root_list)
         if not self.paths:
             raise FileNotFoundError(f"no images found under {list(dataset_root_list)!r}")
         self.resolution = 2 ** (scale_index + 2)
         self.augment = augment
+        self._native = None
+        self._warned_fallback = False
+        if use_native is not False:
+            from pggan_tpu_torch.native import NativeImageLoader, native_available
+            if native_available():
+                self._native = NativeImageLoader(self.resolution, augment=augment)
+            elif use_native:
+                raise RuntimeError("native loader requested but its build failed")
         cache_bytes = len(self.paths) * self.resolution ** 2 * 3
         if cache_decoded == "auto" or cache_decoded is None:
             cache = cache_bytes <= int(decode_cache_mb) * (1 << 20)
@@ -114,21 +128,46 @@ class ImageFolderDataset:
             self._store = ResizedStore(store_dir, self.paths, self.resolution,
                                        self._resize_uncached, verbose=is_master)
         if is_master:
+            loader = "PIL loader"
+            if self._native is not None:
+                loader = ("native loader" if self._native.decoder == "native"
+                          else "native loader, PIL decode")
             where = f", decode cache {cache_bytes / 1e6:.1f} MB" if cache else ""
             if self._store is not None:
                 where = f", resized store {self._store.nbytes / 1e6:.1f} MB on disk"
             print(f"Dataset of {len(self)} images constructed for the training "
-                  f"(PIL loader{where}).")
+                  f"({loader}{where}).")
 
     def __len__(self) -> int:
         return len(self.paths)
 
-    def _resize_uncached(self, path: str) -> np.ndarray:
-        """Decode and resize to the training resolution, no augmentation
-        (torchvision's Resize default: bilinear)."""
+    @property
+    def backend(self) -> str:
+        """'native' or 'PIL': which path resizes and jitters."""
+        return "native" if self._native is not None else "PIL"
+
+    def _pil_resized(self, path: str) -> Image.Image:
+        """PIL's decode and resize (torchvision's Resize default: bilinear)."""
         img = Image.open(path).convert("RGB")
-        img = img.resize((self.resolution, self.resolution), Image.BILINEAR)
-        return np.asarray(img, dtype=np.uint8)
+        return img.resize((self.resolution, self.resolution), Image.BILINEAR)
+
+    def _resize_uncached(self, path: str) -> np.ndarray:
+        """Decode and resize to the training resolution, no augmentation."""
+        if self._native is not None:
+            try:
+                return self._native.resize(path)
+            except IOError:
+                self._warn_fallback(path)
+        return np.asarray(self._pil_resized(path), dtype=np.uint8)
+
+    def _warn_fallback(self, path: str) -> None:
+        """libjpeg and libpng reject some files PIL reads (CMYK JPEGs, some
+        PNGs): those images take the PIL path, with one message a dataset
+        (`pggan_tpu/data/dataset.py:189-196`)."""
+        if not self._warned_fallback:
+            self._warned_fallback = True
+            print(f"[pggan_tpu_torch.data] native decode failed for {path!r}; "
+                  f"using PIL for such images")
 
     def _cached(self, path: str) -> np.ndarray:
         arr = self._cache.get(path)
@@ -150,12 +189,18 @@ class ImageFolderDataset:
     def get(self, index: int, rng: np.random.RandomState) -> np.ndarray:
         if self._cache is None and self._store is None:
             path = self.paths[index % len(self.paths)]
-            img = Image.open(path).convert("RGB")
-            img = img.resize((self.resolution, self.resolution), Image.BILINEAR)
+            if self._native is not None:
+                try:
+                    return self._native.load(path, rng if self.augment else None)
+                except IOError:
+                    self._warn_fallback(path)
+            img = self._pil_resized(path)
         else:
             arr = self.resized_array(index)
             if not self.augment:
                 return arr
+            if self._native is not None:
+                return self._native.augment_cached(arr, rng)
             img = Image.fromarray(arr)
         if self.augment:
             if rng.rand() < 0.5:

@@ -2,8 +2,9 @@
 `pggan_tpu/data/pipeline.py:DataPipeline`.
 
   * a producer thread draws each batch's dataset indices and augmentation
-    seeds, and a pool of `num_workers` threads loads its images (PIL
-    releases the GIL while it decodes and resizes);
+    seeds, and a pool of `num_workers` threads loads its images (the native
+    loader's ctypes calls release the GIL, and so does PIL while it decodes
+    and resizes, though not between its jitter ops);
   * batches are uint8 [B, R, R, 3], put on the step's device by the
     producer thread while the step before runs, into a queue of
     `prefetch_depth` batches;

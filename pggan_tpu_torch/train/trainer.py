@@ -4,7 +4,8 @@ on one card or one rank of a data-parallel group.
 It holds G, D, their Adam optimizers, the optional G weight average, the
 progressive schedule and the batch stream (`data/pipeline.py`; with
 `device_data_cache` on, assembled on the device from the scale's images
-uploaded once, `data/device_cache.py`). A scale
+uploaded once, `data/device_cache.py`; with `data_backend_impl: grain`,
+`data/grain_pipeline.py`). A scale
 jump grows both networks, rebuilds the data stream at the new resolution,
 starts fresh optimizers (the reference discards Adam's moments at every
 jump) and builds the next scale's step. Lazy R1 (`r1_interval > 1`) runs
@@ -224,10 +225,16 @@ class ProgressiveGANTrainer:
 
     def set_data_iterator(self) -> None:
         """The batch stream of this scale, fast-forwarded past the batches
-        already consumed at it (`trainer.py:204-258`). With
-        `device_data_cache` on (`data/device_cache.py`), the scale's resized
-        images are uploaded to the device once and the stream's batches are
-        assembled there; the old scale's cache is freed before the upload."""
+        already consumed at it (`trainer.py:204-258`). `data_backend_impl`
+        picks the thread pipeline ('threads') or grain's ('grain'); any
+        other value raises. With `device_data_cache` on
+        (`data/device_cache.py`), the thread pipeline's batches are
+        assembled on the device from the scale's resized images, uploaded
+        once; the old scale's cache is freed before the upload. Grain's
+        record stream stays a host pipeline, as in the JAX package."""
+        impl = str(self.cfg.data_backend_impl)
+        if impl not in ("threads", "grain"):
+            raise ValueError(f"data_backend_impl {impl!r}: expected 'threads' or 'grain'")
         if self._pipeline is not None:
             self._pipeline.close()
         self._pipeline = None           # drops the old scale's cache with it
@@ -241,20 +248,24 @@ class ProgressiveGANTrainer:
                 f"minibatch-stddev group ({_MBSTD_GROUP}): the statistic is taken per rank, "
                 f"and equals the global batch's grouping (the JAX mesh's) only when each "
                 f"rank's batch is a multiple of the group")
+        kwargs = dict(indices=self._train_indices,
+                      num_workers=int(self.cfg.num_data_workers),
+                      prefetch_depth=int(self.cfg.prefetch_depth),
+                      seed=int(self.cfg.seed) + sched.scale_index,
+                      rank=self.rank, num_replicas=self.world,
+                      start_batch=max(0, self.global_step - scale_start), device=self.device)
+        if impl == "grain":
+            from pggan_tpu_torch.data.grain_pipeline import GrainPipeline
+            self._pipeline = GrainPipeline(self.dataset, self.batch_size, **kwargs)
+            return
         assemble_fn = None
         if resolve_device_data_cache(self.cfg, self.dataset, num_replicas=self.world):
             cache = DeviceDataCache(self.dataset, self.device)
             assemble_fn = cache.assemble
             print(f"[pggan_tpu_torch] device data cache: {cache.n_images} images, "
                   f"{cache.nbytes / 1e6:.1f} MB on {self.device}")
-        self._pipeline = DataPipeline(
-            self.dataset, self.batch_size, indices=self._train_indices,
-            num_workers=int(self.cfg.num_data_workers),
-            prefetch_depth=int(self.cfg.prefetch_depth),
-            seed=int(self.cfg.seed) + sched.scale_index,
-            rank=self.rank, num_replicas=self.world,
-            start_batch=max(0, self.global_step - scale_start), device=self.device,
-            assemble_fn=assemble_fn)
+        self._pipeline = DataPipeline(self.dataset, self.batch_size, assemble_fn=assemble_fn,
+                                      **kwargs)
 
     def set_loss_collector(self) -> None:
         self.loss_collector = LossCollector(

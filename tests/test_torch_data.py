@@ -1,11 +1,13 @@
-"""The port's folder data against the JAX package's (PIL path): the glob,
-`ImageFolderDataset.get` with augmentation on and off, decoded once into
-RAM or not, the resized store, `DataPipeline` for rank 0 of 1 and rank 1 of
-2 with and without a fast-forward, and the sample grid.
+"""The port's folder data against the JAX package's, on the native C++
+loader and on the PIL path: the glob, `ImageFolderDataset.get` with
+augmentation on and off, decoded once into RAM or not, the resized store,
+`DataPipeline` for rank 0 of 1 and rank 1 of 2 with and without a
+fast-forward, and the sample grid.
 
-The JAX package's data modules are numpy and PIL, so nothing here compiles
-a JAX program. Its `ImageFolderDataset` is built with `use_native=False`:
-its C++ loader draws differently by design. Every comparison is exact.
+The JAX package's data modules are numpy, PIL and its C++ loader, so
+nothing here compiles a JAX program. Both packages' `ImageFolderDataset`
+take the same `use_native` (the two loaders draw differently by design;
+tests/test_torch_native.py holds the defaults). Every comparison is exact.
 """
 
 import os
@@ -21,9 +23,19 @@ from pggan_tpu.utils import image as jax_image
 from pggan_tpu_torch.config import Config
 from pggan_tpu_torch.data import dataset
 from pggan_tpu_torch.data.pipeline import DataPipeline
+from pggan_tpu_torch.native import build, native_available
 from pggan_tpu_torch.utils import image
 
 SCALE = 2                  # 16×16 samples from 16-24 px sources
+LOADERS = ["native", "PIL"]
+
+
+def _use_native(loader):
+    """`use_native` for a loader; the native case skips where the loader
+    does not build (tests/test_native.py skips there too)."""
+    if loader == "native" and not native_available():
+        pytest.skip("native loader build failed")
+    return loader == "native"
 
 
 @pytest.fixture(scope="module")
@@ -46,14 +58,17 @@ def test_list_image_paths_matches_jax(image_root):
     assert len(paths) == 8
 
 
+@pytest.mark.parametrize("loader", LOADERS)
 @pytest.mark.parametrize("augment", [True, False])
 @pytest.mark.parametrize("cache", [True, False])
-def test_get_matches_jax(image_root, augment, cache):
+def test_get_matches_jax(image_root, augment, cache, loader):
+    native = _use_native(loader)
     ours = dataset.ImageFolderDataset([image_root], SCALE, augment=augment,
-                                      cache_decoded=cache)
+                                      cache_decoded=cache, use_native=native)
     theirs = jax_dataset.ImageFolderDataset([image_root], SCALE, augment=augment,
-                                            cache_decoded=cache, use_native=False)
+                                            cache_decoded=cache, use_native=native)
     assert ours.paths == theirs.paths and (ours._cache is not None) == cache
+    assert ours.backend == loader
     for i in range(len(ours)):
         for seed in (0, 7, 12345):
             got = ours.get(i, np.random.RandomState(seed))
@@ -62,13 +77,16 @@ def test_get_matches_jax(image_root, augment, cache):
             np.testing.assert_array_equal(got, want, err_msg=f"{i} {seed}")
 
 
-def test_resized_store_matches_ram_cache(image_root, tmp_path):
-    cached = dataset.ImageFolderDataset([image_root], SCALE, cache_decoded=True)
+@pytest.mark.parametrize("loader", LOADERS)
+def test_resized_store_matches_ram_cache(image_root, tmp_path, loader):
+    native = _use_native(loader)
+    cached = dataset.ImageFolderDataset([image_root], SCALE, cache_decoded=True,
+                                        use_native=native)
     stored = dataset.ImageFolderDataset([image_root], SCALE, resized_store=True,
-                                        store_dir=str(tmp_path / "port"))
+                                        store_dir=str(tmp_path / "port"), use_native=native)
     theirs = jax_dataset.ImageFolderDataset([image_root], SCALE, resized_store=True,
                                             store_dir=str(tmp_path / "jax"),
-                                            use_native=False)
+                                            use_native=native)
     assert stored._store is not None and stored._cache is None
     assert sorted(os.listdir(tmp_path / "port")) == sorted(os.listdir(tmp_path / "jax"))
     for i in range(len(cached)):
@@ -78,14 +96,16 @@ def test_resized_store_matches_ram_cache(image_root, tmp_path):
         np.testing.assert_array_equal(got, theirs.get(i, np.random.RandomState(i)))
 
 
+@pytest.mark.parametrize("loader", LOADERS)
 @pytest.mark.parametrize("rank, replicas", [(0, 1), (1, 2)])
 @pytest.mark.parametrize("start", [0, 3])
-def test_pipeline_matches_jax(image_root, rank, replicas, start):
+def test_pipeline_matches_jax(image_root, rank, replicas, start, loader):
     """Batches past two epochs (6 train indices, batch 2: 3 batches an
     epoch for rank 0 of 1, 1 for rank 1 of 2), the same split, seed and
     fast-forward."""
-    ours = dataset.ImageFolderDataset([image_root], SCALE)
-    theirs = jax_dataset.ImageFolderDataset([image_root], SCALE, use_native=False)
+    native = _use_native(loader)
+    ours = dataset.ImageFolderDataset([image_root], SCALE, use_native=native)
+    theirs = jax_dataset.ImageFolderDataset([image_root], SCALE, use_native=native)
     indices, _ = dataset.split_dataset(len(ours), 0.7, seed=3)
     kwargs = dict(indices=indices, num_workers=2, prefetch_depth=2, seed=11,
                   rank=rank, num_replicas=replicas, start_batch=start)
@@ -120,7 +140,7 @@ def test_pipeline_raises_worker_error_and_closes():
     assert not pipe._thread.is_alive()
 
 
-def test_build_dataset_folder(image_root, tmp_path):
+def test_build_dataset_folder(image_root, tmp_path, monkeypatch):
     cfg = Config({"data_backend": "auto", "dataset_root_list": [image_root],
                   "save_root": str(tmp_path)})
     ds = dataset.build_dataset(cfg, 1)
@@ -131,8 +151,14 @@ def test_build_dataset_folder(image_root, tmp_path):
     cfg.data_backend = "folder"
     with pytest.raises(FileNotFoundError):
         dataset.build_dataset(cfg, 1)
-    with pytest.raises(ValueError, match="native"):
+    # a loader that does not build: use_native=True raises, None takes PIL
+    monkeypatch.setattr(build, "CXX", str(tmp_path / "no-such-g++"))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "_tried", False)
+    with pytest.raises(RuntimeError, match="native loader requested but its build failed"):
         dataset.ImageFolderDataset([image_root], 1, use_native=True)
+    assert dataset.ImageFolderDataset([image_root], 1).backend == "PIL"
 
 
 def test_sample_grid_matches_jax(tmp_path):

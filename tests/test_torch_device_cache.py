@@ -6,7 +6,9 @@ bit for bit where no hue rotation runs (augmentation off, flips, each of
 brightness, contrast and saturation alone, all three with the hue off by
 its sentinel), within one step of 255 with the hue on (hue-sector ties
 included). The whole cache against JAX's on one folder and one list of
-seeds; against the port's own PIL path with JAX's bounds; the gate; the
+seeds (on the native loader and on the PIL path); against the port's own
+PIL path and its native loader, each as far as JAX's cache is from the
+same JAX path; the gate; the
 pipeline's `assemble_fn` stream; and `python -m pggan_tpu_torch.train` with
 the cache against the host pipeline.
 """
@@ -30,6 +32,7 @@ from pggan_tpu_torch.data.dataset import ImageFolderDataset, SyntheticDataset
 from pggan_tpu_torch.data.device_cache import (DeviceDataCache, assemble_batch,
                                                resolve_device_data_cache)
 from pggan_tpu_torch.data.pipeline import DataPipeline
+from pggan_tpu_torch.native import native_available
 from pggan_tpu_torch.utils import checkpoint as port_ckpt
 
 SCALE = 3                  # 32×32 samples from 32-px sources: no resampling
@@ -118,10 +121,13 @@ def test_assemble_jitter_within_one_lsb_of_jax(jax_assemble_fn):
     assert not np.array_equal(got, data[idx])          # the jitter ran
 
 
-def test_cache_matches_jax_cache(image_dir):
+@pytest.mark.parametrize("native", [True, False])
+def test_cache_matches_jax_cache(image_dir, native):
+    if native and not native_available():
+        pytest.skip("native loader build failed")
     idxs, seeds = [0, 1, 2, 3, 4], [11, 22, 33, 44, 55]
-    ours = DeviceDataCache(ImageFolderDataset([image_dir], SCALE), "cpu")
-    theirs = JaxCache(JaxFolder([image_dir], SCALE, use_native=False), create_mesh())
+    ours = DeviceDataCache(ImageFolderDataset([image_dir], SCALE, use_native=native), "cpu")
+    theirs = JaxCache(JaxFolder([image_dir], SCALE, use_native=native), create_mesh())
     assert (ours.n_images, ours.nbytes) == (theirs.n_images, theirs.nbytes) == (5, 5 * 32 * 32 * 3)
     got = ours.assemble(idxs, seeds)
     want = np.asarray(theirs.assemble(idxs, seeds))
@@ -137,9 +143,9 @@ def test_cache_against_the_pil_path(image_dir):
     PIL path rounds to uint8 between ops and turns the hue through 8-bit
     HSV, so on these noise images both packages differ from it by up to 9
     steps, 1.54 on average. (tests/test_device_cache.py's bounds of 6 and
-    1.0 hold its cache against its C++ loader, which the port has not.)"""
+    1.0 hold its cache against its C++ loader: the next test.)"""
     seeds, idxs = [11, 22, 33, 44, 55], [0, 1, 2, 3, 4]
-    ds = ImageFolderDataset([image_dir], SCALE)
+    ds = ImageFolderDataset([image_dir], SCALE, use_native=False)
     got = DeviceDataCache(ds, "cpu").assemble(idxs, seeds).numpy().astype(int)
     pil = np.stack([ds.get(i, np.random.RandomState(s)) for i, s in zip(idxs, seeds)])
     theirs = JaxFolder([image_dir], SCALE, use_native=False)
@@ -149,12 +155,38 @@ def test_cache_against_the_pil_path(image_dir):
     delta, jax_delta = np.abs(got - pil), np.abs(want - pil)
     assert np.abs(delta - jax_delta).max() <= 1
     assert abs(delta.max() - jax_delta.max()) <= 1 and abs(delta.mean() - jax_delta.mean()) < 0.01
-    plain = ImageFolderDataset([image_dir], SCALE, augment=False)
+    plain = ImageFolderDataset([image_dir], SCALE, augment=False, use_native=False)
     cache = DeviceDataCache(plain, "cpu")
     for idxs in ([4, 2], [7, 12]):                     # 7, 12: modulo the 5 images
         got = cache.assemble(idxs, [1, 2]).numpy()
         want = np.stack([plain.get(i, np.random.RandomState(s)) for i, s in zip(idxs, (1, 2))])
         np.testing.assert_array_equal(got, want)
+
+
+def test_cache_against_the_native_path(image_dir):
+    """The cache against the dataset at its default, the native loader
+    (jitter in float, rounded once, like the cache's): within
+    tests/test_device_cache.py's bounds for the JAX package's pair (6
+    steps, 1.0 on average), and as far from it as the JAX package's cache
+    is from the JAX package's loader (within one step). Bit for bit without
+    augmentation."""
+    if not native_available():
+        pytest.skip("native loader build failed")
+    seeds, idxs = [11, 22, 33, 44, 55], [0, 1, 2, 3, 4]
+    ds = ImageFolderDataset([image_dir], SCALE)
+    assert ds.backend == "native"
+    got = DeviceDataCache(ds, "cpu").assemble(idxs, seeds).numpy().astype(int)
+    host = np.stack([ds.get(i, np.random.RandomState(s)) for i, s in zip(idxs, seeds)])
+    theirs = JaxFolder([image_dir], SCALE)
+    want = np.asarray(JaxCache(theirs, create_mesh()).assemble(idxs, seeds)).astype(int)
+    np.testing.assert_array_equal(
+        host, np.stack([theirs.get(i, np.random.RandomState(s)) for i, s in zip(idxs, seeds)]))
+    delta, jax_delta = np.abs(got - host), np.abs(want - host)
+    assert delta.max() <= 6 and delta.mean() < 1.0
+    assert np.abs(delta - jax_delta).max() <= 1
+    plain = ImageFolderDataset([image_dir], SCALE, augment=False)
+    got = DeviceDataCache(plain, "cpu").assemble([4, 2], [1, 2]).numpy()
+    np.testing.assert_array_equal(got, np.stack([plain.get(4, None), plain.get(2, None)]))
 
 
 def test_gate(image_dir):
