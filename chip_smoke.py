@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's sampling, training, ops, evaluation, serving,
-import, data-parallel, native-loader and 1024² paths once on one CUDA card.
+import, data-parallel, native-loader, 1024² and chunked-dispatch paths once
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -142,7 +143,25 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      backward at [16,1024,1024,16] and [32,512,512,32] against their plain
      versions with their times and bounds; a torch.profiler capture of the
      scale-8 step (idle share, top kernels, layout copies); and, where
-     grain imports, a few steps with data_backend_impl: grain.
+     grain imports, a few steps with data_backend_impl: grain;
+ 19. chunked dispatch (`train/graphs.py`): at full width, scale 6, f32 with
+     TF32 off and cuDNN's deterministic algorithms, a steps_per_dispatch
+     window of 4 replays of the captured step and a lazy-R1 window of 4 (the
+     lead's graph, 3 replays of the tail's) against the same windows' eager
+     steps from the same state and batches, bit for bit in the weights,
+     G_ema, Adam's state, the latent generator's state and the metrics (the
+     lazy window again in bf16, its difference printed), with the launches
+     a replay; `pggan_tpu_torch.train.main --steps_per_dispatch auto` at
+     scale 4 (64²) in bf16: the windows of 8 between the loss lines, the
+     launches (wrapper calls at capture times replays), finite losses, and a
+     run cut by SIGTERM and resumed equal to the uninterrupted one bit for
+     bit; tools/bench_e2e_torch.py at 16², 64² and 256²: every step one a
+     call against windows of 8 graph replays, lazy R1/16 eager against graph
+     replays (the trainer's img/s, the steps' device time, the share outside
+     them, the idle share); config_1024.yaml at 1024² in windows of 2 (the
+     capture's seconds, the peak memory); and phase 17's group of one
+     through lazy windows with NCCL's all-reduce captured and
+     `check_replication_consistency`.
 
 The second-to-last lines are a JSON object describing the kernels and the
 card's name and power limit; the last line is
@@ -285,6 +304,19 @@ HIRES_RATE_BATCHES = {256: 12, 512: 6, 1024: 4}
 HIRES_STEPS, GRAIN_STEPS = 3, 3
 HIRES_KERNEL_SHAPES = [(16, 1024, 1024, 16), (32, 512, 512, 32)]
 HIRES_DEVICE_CALLS = 5
+# Phase 19: chunked dispatch. Windows of CHUNK_K steps replayed from the
+# captured steps against the same windows' eager steps, from the same state
+# and batches, with the weight average at CHUNK_EMA; the trainer at scale
+# CHUNK_SCALE (64²) with steps_per_dispatch auto (8 there) over
+# CHUNK_RUN_STEPS steps with a loss line every CHUNK_LOSS_CYCLE, cut by a
+# SIGTERM after CHUNK_CUT and resumed; the trainer's rates at RATE_SCALES
+# over RATE_STEPS timed steps (windows of RATE_WINDOW; lazy R1/RATE_LAZY);
+# config_1024.yaml at scale 8 in windows of HIRES_CHUNK.
+CHUNK_K, CHUNK_EMA = 4, 0.999
+CHUNK_SCALE, CHUNK_LOSS_CYCLE, CHUNK_RUN_STEPS, CHUNK_CUT = 4, 10, 40, 20
+RATE_SCALES, RATE_WINDOW, RATE_LAZY = (2, 4, 6), 8, 16
+RATE_STEPS = {2: 32, 4: 32, 6: 16}
+HIRES_CHUNK = 2
 # cuDNN and PyTorch kernels that only move data between layouts (the
 # work hires_pack removed on the TPU): matched in the profile's kernel names.
 LAYOUT_COPY_NAMES = ("copy", "transpose", "nchwToNhwc", "nhwcToNchw")
@@ -1694,6 +1726,51 @@ def folder_run(train_mod, kernels, argv, hook=None):
             dict(kernels.launches), seconds)
 
 
+@contextlib.contextmanager
+def recording_trainers(train_mod, trainers):
+    """Append every trainer that `train_mod.main` creates to `trainers`."""
+    create = train_mod.create_model
+
+    def recording(cfg, **kwargs):
+        trainers.append(create(cfg, **kwargs))
+        return trainers[-1]
+    with mock.patch.object(train_mod, "create_model", recording):
+        yield
+
+
+def executed_launches(launches, trainer):
+    """The kernel launches a run executed, from the wrapper calls it counted
+    (`launches`) and the trainer's captured steps: a wrapper counts a call at
+    capture, which runs nothing, and a replay calls no wrapper but runs the
+    capture's launches. Returns (executed, a line that says so)."""
+    graphs = trainer._graphs
+    if graphs is None or not graphs.captured:
+        return dict(launches), f"wrapper calls {launches}, no replays"
+    captured = graphs.captured
+    at_capture = {k: sum(c.launches[k] for c in captured.values()) for k in launches}
+    replayed = graphs.launches_replayed()
+    executed = {k: launches[k] - at_capture[k] + replayed[k] for k in launches}
+    return executed, (f"wrapper calls {launches} (of them at capture {at_capture}) + "
+                      + " + ".join(f"the {kind} step's {c.launches} x {c.replays} replays"
+                                   for kind, c in captured.items())
+                      + f" = {executed}")
+
+
+def check_lazy_launches(label, launches, trainer, steps):
+    """A lazy-R1 run's executed launches: phase 8's a step, less one
+    minibatch-stddev launch a tail step (the tail's reals and fakes go
+    through one D forward); the tail steps are the tail graph's replays and
+    the eager step before its capture."""
+    executed, text = executed_launches(launches, trainer)
+    captured = trainer._graphs.captured if trainer._graphs is not None else {}
+    tails = captured["tail"].replays + 1 if "tail" in captured else 0
+    want = {k: n * steps for k, n in STEP_LAUNCHES.items()}
+    want["minibatch_stddev_stat"] -= tails
+    check(executed == want, f"{label}: launches {executed}, expected {want}")
+    print(f"[{label}] launches: {text} = {steps} steps x {STEP_LAUNCHES}, less one "
+          f"minibatch-stddev launch in each of the {tails} tail steps")
+
+
 def read_metrics(run_dir, steps):
     """metrics.jsonl of a run: one line per loss_cycle step of `steps`, with
     the JAX trainer's keys (imgs_per_sec from the second line on). Returns
@@ -2334,8 +2411,11 @@ def run_cache_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card, bf16_s
     for name, over, extra in (("lazy_cache", {"device_data_cache": True}, ()),
                               ("lazy_host", {}, ()),
                               ("lazy_synthetic", {}, ("--data_backend", "synthetic"))):
-        rc, _, _, _, _, _ = run(name, 0, dict(lazy, **over), *extra, end=end)
+        trainers = []
+        with recording_trainers(train_mod, trainers):
+            rc, batches, _, _, launches, _ = run(name, 0, dict(lazy, **over), *extra, end=end)
         check(rc == 0, f"{name} returned {rc}")
+        check_lazy_launches(f"14 {name}", launches, trainers[-1], len(batches))
         with open(os.path.join(tmp, name, "metrics.jsonl")) as f:
             lines = [json.loads(line) for line in f]
         check([m["step"] for m in lines] == list(range(first, end, LAZY_R1)),
@@ -3044,11 +3124,14 @@ def time_loader_trainer(train_mod, kernels, ckpt_lib, cfg, depths, folders, tmp,
         config = os.path.join(tmp, f"{name}.yaml")
         with open(config, "w") as f:                    # JSON is YAML
             json.dump(base, f)
-        with (pil_only() if name == "lazy_pil" else contextlib.nullcontext()):
-            rc, _, _, lines, _, _ = folder_run(train_mod, kernels, [
+        trainers = []
+        with (pil_only() if name == "lazy_pil" else contextlib.nullcontext()), \
+                recording_trainers(train_mod, trainers):
+            rc, batches, _, lines, launches, _ = folder_run(train_mod, kernels, [
                 name, "--config", config, "--ckpt_id", "smoke_init", "--max_step", str(end),
                 "--compute_dtype", "bfloat16", "--device", DEVICE, *extra])
         check(rc == 0, f"{name} returned {rc}")
+        check_lazy_launches(f"18 {name}", launches, trainers[-1], len(batches))
         if loader:
             check(any(f"({loader}" in line for line in lines), f"{name}: no '{loader}' line")
         with open(os.path.join(tmp, name, "metrics.jsonl")) as f:
@@ -3377,6 +3460,356 @@ def run_hires_phase(train_mod, kernels, ckpt_lib, step_mod, cfg, depths, tmp, ca
     return times
 
 
+# ---- phase 19: chunked dispatch ----------------------------------------------
+
+class FixedBatches:
+    """A stand-in for the trainer's data stream: the given batches in order."""
+
+    def __init__(self, batches):
+        self._batches = iter(batches)
+
+    def __next__(self):
+        return next(self._batches)
+
+    def close(self):
+        pass
+
+
+def state_tensors(state):
+    """{name: tensor} of what a step moves: the weights of G, D and G_ema,
+    and Adam's moments and step counts."""
+    out = {}
+    for name, net in (("G", state.G), ("D", state.D), ("G_ema", state.G_ema)):
+        if net is not None:
+            out.update({f"{name}.{k}": t for k, t in net.state_dict().items()})
+    for name, net, opt in (("opt_G", state.G, state.opt_G), ("opt_D", state.D, state.opt_D)):
+        for pname, param in net.named_parameters():
+            out.update({f"{name}.{pname}.{slot}": t
+                        for slot, t in opt.state.get(param, {}).items()})
+    return out
+
+
+def snapshot(state):
+    """(copies of `state_tensors`, the latent generator's state)."""
+    return ({k: t.detach().clone() for k, t in state_tensors(state).items()},
+            state.rng.get_state())
+
+
+def restore(state, snap):
+    """Write a snapshot back into the state's own tensors (the addresses the
+    captured steps hold stay)."""
+    tensors, rng = snap
+    with torch.no_grad():
+        for name, t in state_tensors(state).items():
+            t.copy_(tensors[name])
+    state.rng.set_state(rng)
+
+
+def window_runs(trainer, run, batches):
+    """`run()` (a window through the trainer) from the same state and batches
+    twice: replaying the captured steps, then eager. The kinds of step it
+    runs must be captured already. Returns {"graphs" | "eager": (snapshot
+    after, the window's metrics)}."""
+    start = snapshot(trainer.state)
+    out = {}
+    for label, use_graphs in (("graphs", True), ("eager", False)):
+        restore(trainer.state, start)
+        trainer.use_graphs = use_graphs
+        trainer._pipeline = FixedBatches(batches)
+        run()
+        out[label] = (snapshot(trainer.state),
+                      {k: v.clone() for k, v in trainer._last_metrics.items()})
+    trainer.use_graphs = True
+    return out
+
+
+def window_difference(runs):
+    """Graphs against eager: (tensors not equal bit for bit, the largest
+    |diff| and where, generator states equal, metrics not equal bit for
+    bit)."""
+    (a, rng_a), m_a = runs["graphs"]
+    (b, rng_b), m_b = runs["eager"]
+    differs = [k for k in b if not torch.equal(a[k], b[k])]
+    worst = max(((float((a[k].double() - b[k].double()).abs().max()), k) for k in differs),
+                default=(0.0, None))
+    metrics = [k for k in m_b if not torch.equal(m_a[k], m_b[k])]
+    return differs, worst, torch.equal(rng_a, rng_b), metrics
+
+
+def chunk_trainer(train_mod, tmp, ckpt_id, **keys):
+    """A trainer resumed from `ckpt_id` in `tmp` on the card, `keys` set."""
+    from pggan_tpu_torch.config import Config
+
+    cfg = Config(dict({"save_root": tmp, "ckpt_id": ckpt_id, "use_mGPU": False,
+                       "data_backend": "synthetic", "loss_cycle": NEVER,
+                       "test_cycle": NEVER, "ckpt_cycle": NEVER}, **keys))
+    with contextlib.redirect_stdout(io.StringIO()):
+        return train_mod.create_model(cfg, device=DEVICE)
+
+
+def run_chunk_parity(train_mod, kernels, ckpt_lib, cfg, depths, tmp):
+    """[19 parity]: at full width, scale 6, batch 16, from phase 8's kind of
+    checkpoint with the weight average on: a steps_per_dispatch window of
+    CHUNK_K replays of the captured step, and a lazy window of CHUNK_K (the
+    lead's graph and CHUNK_K − 1 replays of the tail's), each against the
+    same window's eager steps from the same state and batches — f32, TF32
+    off, cuDNN's deterministic algorithms: weights, G_ema, Adam's moments and
+    counts, the generator's state and the metrics bit for bit; the lazy
+    window again in bf16 (the largest difference printed). Returns the
+    launches a replay of each kind."""
+    _, _, _, start = train_checkpoint(ckpt_lib, cfg, depths, tmp)
+    trainer = chunk_trainer(train_mod, tmp, "smoke_init", g_ema_decay=CHUNK_EMA,
+                            steps_per_dispatch=CHUNK_K, compute_dtype="float32")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    launches = {}
+    try:
+        batches = [next(trainer._pipeline).clone() for _ in range(CHUNK_K)]
+        trainer._pipeline.close()
+        windows = (("steps_per_dispatch", lambda: trainer.train_chunk(CHUNK_K)),
+                   ("lazy window", lambda: trainer.train_window(CHUNK_K)))
+        for dtype in ("float32", "bfloat16"):
+            if dtype == "bfloat16":
+                trainer.cfg["compute_dtype"] = dtype
+                trainer._build_step_fn()            # new steps: the graphs go
+                windows = windows[1:]
+            for label, run in windows:
+                kernels.reset_launch_counts()
+                trainer._pipeline = FixedBatches(batches)
+                run()                               # its kinds' first runs capture them
+                differs, worst, rng_equal, metrics = window_difference(
+                    window_runs(trainer, run, batches))
+                runner = trainer._graphs
+                kinds = {kind: (c.launches, c.replays, round(c.seconds, 2))
+                         for kind, c in runner.captured.items()}
+                print(f"[19 parity] {label}, {dtype}, {CHUNK_K} steps at {RES}x{RES}, batch "
+                      f"{BATCH}, g_ema_decay {CHUNK_EMA}: graph replays against eager "
+                      f"steps: {len(differs)} of {len(state_tensors(trainer.state))} "
+                      f"tensors differ (largest |diff| {worst[0]:.3g} at {worst[1]}), "
+                      f"generator state {'equal' if rng_equal else 'DIFFERS'}, metrics "
+                      f"differing {metrics}; captured (launches a replay, replays, "
+                      f"capture s): {kinds}")
+                if dtype == "float32":
+                    check(not differs and rng_equal and not metrics,
+                          f"{label}: the graph replays differ from the eager steps")
+                    launches.update({kind: c.launches for kind, c in runner.captured.items()})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        trainer.close()
+    tail = dict(STEP_LAUNCHES, minibatch_stddev_stat=2)   # real and fake in one D forward
+    check(launches == {"step": STEP_LAUNCHES, "lead": STEP_LAUNCHES, "tail": tail},
+          f"launches a replay {launches}: expected step and lead {STEP_LAUNCHES}, tail {tail}")
+    return launches
+
+
+def expected_windows(start, end, k, cycle):
+    """The steps where the trainer's steps_per_dispatch windows start over
+    [start, end) with a loss line every `cycle` steps and no other host
+    action (JAX's all-or-nothing rule)."""
+    out, step = [], start
+    while step < end:
+        if step + k <= end and all(u % cycle for u in range(step, step + k)):
+            out.append(step)
+            step += k
+        else:
+            step += 1
+    return out
+
+
+def run_chunk_train(train_mod, kernels, ckpt_lib, cfg, tmp):
+    """[19 train]: `pggan_tpu_torch.train.main --steps_per_dispatch auto` at
+    scale CHUNK_SCALE, full width, batch 16, bf16, synthetic data, r1 every
+    step, a loss line every CHUNK_LOSS_CYCLE steps: the windows (8 steps
+    between the loss lines), the launches (wrapper calls at capture times
+    replays), finite losses, the checkpoint; then the same run cut by a
+    SIGTERM after CHUNK_CUT steps and resumed from its checkpoint, whose
+    weights and Adam state at the end equal the uninterrupted run's bit for
+    bit. Returns the launches the uninterrupted run's replays made."""
+    from pggan_tpu_torch.train.trainer import ProgressiveGANTrainer
+
+    arrays_g, arrays_d, start = hires_checkpoint(ckpt_lib, cfg, CHUNK_SCALE, tmp, "init_chunk")
+    config = os.path.join(tmp, "chunk.yaml")
+    with open(config, "w") as f:                    # JSON is YAML
+        json.dump({"save_root": tmp, "loss_cycle": CHUNK_LOSS_CYCLE, "test_cycle": NEVER,
+                   "ckpt_cycle": NEVER, "r1_interval": 1, "batch_per_gpu": BATCH}, f)
+    end = start + CHUNK_RUN_STEPS
+    trainers, windows = [], []
+    chunk = ProgressiveGANTrainer.train_chunk
+
+    def recording_chunk(self, k):
+        windows.append((self.global_step, k))
+        return chunk(self, k)
+
+    def train(run, ckpt_id, hook=None):
+        with recording_trainers(train_mod, trainers), \
+                mock.patch.object(ProgressiveGANTrainer, "train_chunk", recording_chunk):
+            return folder_run(train_mod, kernels, [
+                run, "--config", config, "--ckpt_id", ckpt_id, "--max_step", str(end),
+                "--compute_dtype", "bfloat16", "--data_backend", "synthetic",
+                "--steps_per_dispatch", "auto", "--device", DEVICE, "--no_mGPU"], hook)
+
+    rc, batches, run_cfg, lines, launches, seconds = train("chunk_a", "init_chunk")
+    check(rc == 0, f"chunk_a returned {rc}")
+    trainer = trainers[-1]
+    want_windows = expected_windows(start, end, 8, CHUNK_LOSS_CYCLE)
+    check(trainer._chunk_size == 8 and [s for s, _ in windows] == want_windows
+          and all(k == 8 for _, k in windows),
+          f"windows {windows}, expected 8 steps at {want_windows}")
+    executed, text = executed_launches(launches, trainer)
+    want = {k: n * CHUNK_RUN_STEPS for k, n in step_launches(CHUNK_SCALE).items()}
+    check(executed == want, f"launches {executed}, expected {want}")
+    check(len(batches) == CHUNK_RUN_STEPS, f"{len(batches)} batches for {CHUNK_RUN_STEPS} steps")
+    losses = [line for line in lines if line.startswith("lossD:")]
+    check(len(losses) == len(range(-(-start // CHUNK_LOSS_CYCLE) * CHUNK_LOSS_CYCLE, end,
+                                   CHUNK_LOSS_CYCLE)), f"{len(losses)} loss lines")
+    for line in losses:
+        d, g = line.replace("lossD:", "").split("| lossG:")
+        check(np.isfinite(float(d)) and np.isfinite(float(g)), f"loss line {line!r}")
+    print(f"[19 train] pggan_tpu_torch.train.main --steps_per_dispatch auto at scale "
+          f"{CHUNK_SCALE} ({4 * 2 ** CHUNK_SCALE}x{4 * 2 ** CHUNK_SCALE}), batch {BATCH}, bf16, "
+          f"r1 every step, a loss line every {CHUNK_LOSS_CYCLE}: {CHUNK_RUN_STEPS} steps from "
+          f"{start} in {seconds:.2f} s; windows of 8 at {want_windows}; losses finite; "
+          f"launches: {text} = {CHUNK_RUN_STEPS} x {step_launches(CHUNK_SCALE)}")
+
+    cut = []
+
+    def sigterm_once(trainer):
+        if trainer.global_step >= start + CHUNK_CUT and not cut:
+            cut.append(trainer.global_step)
+            os.kill(os.getpid(), signal.SIGTERM)
+    rc, _, _, lines, _, _ = train("chunk_b", "init_chunk", sigterm_once)
+    check(rc == 0 and len(cut) == 1, f"chunk_b returned {rc}, cut {cut}")
+    stop = cut[0] + 1
+    check(any(f"interrupted at step {stop}" in line for line in lines),
+          f"chunk_b: no 'interrupted at step {stop}' line")
+    rc, _, _, lines, _, _ = train("chunk_c", "chunk_b")
+    check(rc == 0 and any(f"checkpoint chunk_b@{stop} restored" in line for line in lines),
+          f"chunk_c returned {rc} or did not restore chunk_b@{stop}")
+    differs = []
+    for name in ("G", "D"):
+        params_a, opt_a, _ = ckpt_lib.load_checkpoint(tmp, "chunk_a", name, end)
+        params_c, opt_c, _ = ckpt_lib.load_checkpoint(tmp, "chunk_c", name, end)
+        differs += [f"{name}:{k}" for arrays_a, arrays_c in ((params_a, params_c), (opt_a, opt_c))
+                    for k in arrays_a if not np.array_equal(arrays_a[k], arrays_c[k])]
+    check(not differs, f"the resumed run differs from the uninterrupted one at {differs[:5]}")
+    print(f"[19 train] SIGTERM after step {cut[0]}: checkpoint at {stop}, resumed to {end}: "
+          f"weights and Adam state equal the uninterrupted run's bit for bit")
+    return trainer._graphs.launches_replayed()
+
+
+def run_rates(card):
+    """[19 rates]: tools/bench_e2e_torch.py in this process at RATE_SCALES,
+    full width (configs.yaml), bf16, batch 16, synthetic data: every step
+    with R1 one step a call against windows of RATE_WINDOW graph replays,
+    and lazy R1/RATE_LAZY eager against graph replays; the trainer's img/s,
+    the device time of each kind of step, the share of the trainer's time
+    outside the steps, and the idle share. Returns the results."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import bench_e2e_torch
+
+    results = []
+    for scale in RATE_SCALES:
+        for label, extra in (("every step, 1 a call", ["--steps_per_dispatch", "1"]),
+                             (f"every step, windows of {RATE_WINDOW} (graphs)",
+                              ["--steps_per_dispatch", str(RATE_WINDOW)]),
+                             (f"lazy R1/{RATE_LAZY}, eager", ["--r1_interval", str(RATE_LAZY),
+                                                               "--eager"]),
+                             (f"lazy R1/{RATE_LAZY}, graphs", ["--r1_interval", str(RATE_LAZY)])):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = bench_e2e_torch.main([
+                    "--scale", str(scale), "--batch", str(BATCH), "--steps",
+                    str(RATE_STEPS[scale]), "--warmup", "2", "--profile", "--config",
+                    os.path.join(REPO, "configs.yaml"), "--device", DEVICE, *extra])
+            check(rc == 0, f"bench_e2e_torch at scale {scale}, {label} returned {rc}")
+            result = json.loads(out.getvalue().splitlines()[-1])
+            results.append(dict(result, label=label))
+            res = 4 * 2 ** scale
+            print(f"[19 rates] {res}x{res}, {label}: trainer {result['value']} img/s "
+                  f"({result['step_ms']} ms a step over {result['steps']} steps); steps on "
+                  f"the device {result['device_step_ms']} ms (graph replays) = "
+                  f"{result['steps_ms']} ms a step; outside the steps "
+                  f"{100 * result['outside_share']:.1f} %; device idle "
+                  f"{100 * result['idle_share']:.1f} % ({card})")
+    return results
+
+
+def run_hires_chunk(train_mod, ckpt_lib, tmp, card):
+    """[19 hires]: configs/config_1024.yaml at scale 8 (1024², batch 16),
+    full width, bf16, r1 every step, steps_per_dispatch HIRES_CHUNK: the
+    capture's seconds, two windows, and the peak memory."""
+    from pggan_tpu_torch.config import Config
+
+    hires = Config.from_yaml(os.path.join(REPO, CONFIG_1024))
+    _, _, start = hires_checkpoint(ckpt_lib, hires, 8, tmp, "init_chunk8")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = chunk_trainer(train_mod, tmp, "init_chunk8", steps_per_dispatch=HIRES_CHUNK,
+                            compute_dtype="bfloat16", r1_interval=1,
+                            synthetic_dataset_size=64, num_data_workers=4)
+    try:
+        check(trainer.batch_size == 16 and trainer.schedule.scale_index == 8,
+              f"batch {trainer.batch_size}, scale {trainer.schedule.scale_index}")
+        t0 = time.perf_counter()
+        for _ in range(2):
+            trainer.train_chunk(HIRES_CHUNK)
+        losses = {k: float(v) for k, v in trainer._last_metrics.items()}
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        captured = trainer._graphs.captured["step"]
+    finally:
+        trainer.close()
+    check(all(np.isfinite(v) for v in losses.values()), f"losses {losses}")
+    print(f"[19 hires] config_1024.yaml at scale 8 (1024x1024), batch 16, bf16, r1 every step, "
+          f"steps_per_dispatch {HIRES_CHUNK}: two windows in {seconds:.2f} s (the first step "
+          f"eager, the capture {captured.seconds:.2f} s, then {captured.replays} replays); "
+          f"losses finite; peak memory {peak:.0f} MiB (eager R1 step: 17456-17721 MiB, "
+          f"phase 18) ({card})")
+
+
+def run_chunk_data_parallel(train_mod, mesh, tmp):
+    """[19 dp]: phase 17's group of one (NCCL) runs lazy windows of CHUNK_K,
+    the step's all-reduce captured with it, and
+    `check_replication_consistency` passes."""
+    from pggan_tpu_torch.config import Config
+    from pggan_tpu_torch.utils.debug import check_replication_consistency
+
+    with torchrun_vars():
+        mesh.init_distributed(Config({"use_mGPU": True}), DEVICE)
+        try:
+            trainer = chunk_trainer(train_mod, tmp, "smoke_init", compute_dtype="bfloat16",
+                                    r1_interval=RATE_LAZY)
+            try:
+                check(trainer.distributed, "the trainer joined no process group")
+                for _ in range(2):
+                    trainer.train_window(CHUNK_K)
+                losses = {k: float(v) for k, v in trainer._last_metrics.items()}
+                check(trainer._replicas_checked, "the replicas were not checked")
+                check_replication_consistency({"G": trainer.state.G, "D": trainer.state.D})
+                replays = {k: c.replays for k, c in trainer._graphs.captured.items()}
+            finally:
+                trainer.close()
+        finally:
+            mesh.shutdown()
+    check(all(np.isfinite(v) for v in losses.values()), f"losses {losses}")
+    print(f"[19 dp] an NCCL group of world 1: two lazy windows of {CHUNK_K} with the "
+          f"all-reduce captured in the lead's and the tail's graphs (replays {replays}); "
+          f"losses finite; check_replication_consistency passed")
+
+
+def run_chunk_phase(train_mod, kernels, ckpt_lib, mesh, cfg, depths, tmp, card):
+    """Phase 19: chunked dispatch. Returns (the launches a replay of each
+    kind, the launches the trainer run's replays made)."""
+    t_phase = time.perf_counter()
+    per_replay = run_chunk_parity(train_mod, kernels, ckpt_lib, cfg, depths, tmp)
+    replayed = run_chunk_train(train_mod, kernels, ckpt_lib, cfg, tmp)
+    run_rates(card)
+    run_hires_chunk(train_mod, ckpt_lib, tmp, card)
+    run_chunk_data_parallel(train_mod, mesh, tmp)
+    print(f"[19 chunk] phase 19 took {time.perf_counter() - t_phase:.2f} s")
+    return per_replay, replayed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3499,6 +3932,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="pggan_smoke_hires_") as tmp:
         run_hires_phase(train_mod, kernels, ckpt_lib, step_mod, cfg, depths, tmp, card, gen)
 
+    # ---- chunked dispatch: windows as CUDA-graph replays ----
+    with tempfile.TemporaryDirectory(prefix="pggan_smoke_chunk_") as tmp:
+        per_replay, chunk_launches = run_chunk_phase(train_mod, kernels, ckpt_lib, mesh, cfg,
+                                                     depths, tmp, card)
+    print("[19 kernels] " + json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "launches_a_replay": {
+            kind: n[name] for kind, n in per_replay.items()},
+         "launches": chunk_launches[name]} for name, n in STEP_LAUNCHES.items() if n]}))
+
     # Every kernel of the three paths at its largest f32 shape on them;
     # `launches` is the training run's count (the demo's is checked in
     # phase 4), and bias_lrelu_gain's the ops path's (phase 11). `ms` is the
@@ -3536,6 +3978,7 @@ def main() -> int:
                        "ms": kernel_ms, "device_ms": kernel_dev,
                        "plain_ms": plain_ms, "bound_ms": b_ms,
                        "bound_by": b_by, "library_ms": lib_ms,
+                       "chunked_launches": chunk_launches[name],
                        "shape": list(shape), "dtype": "float32"})
     print(json.dumps({"kernels": report}))
     print(card)

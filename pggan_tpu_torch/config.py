@@ -99,11 +99,14 @@ _DEFAULTS: Dict[str, Any] = {
     "device_cache_mb": 256,
     # per-scale batch override: {scale_index: batch}; None → batch_per_gpu
     "batch_schedule": None,
-    # JAX package only: XLA options, chunked dispatch, rematerialization and
-    # packed top levels
+    # steps a dispatch in event-free windows: an int >= 1 or 'auto' (8 up to
+    # 128², else 1); checked when the trainer builds a scale's step
+    # (`train/step.py:resolve_steps_per_dispatch`, as JAX's `step.py:509-523`);
+    # on a card a window replays the step captured in a CUDA graph
+    "steps_per_dispatch": 1,
+    # JAX package only: XLA options, rematerialization and packed top levels
     "donate_buffers": True,
     "compiler_options": None,
-    "steps_per_dispatch": 1,
     "remat": "auto",
     # 'dilated' | 'auto' | bool | int (fuse when cout <= N); see
     # models/generator.py for how each maps onto the two exact forms.

@@ -7,7 +7,15 @@
     resized images are decoded once a scale into RAM when they fit
     `decode_cache_mb`, else read from the on-disk resized store. The work
     runs in the native C++ loader (`pggan_tpu_torch/native/`) whenever it
-    builds, as in the JAX package, else in PIL;
+    builds, as in the JAX package, else in PIL. Where libjpeg/libpng do
+    not link, the two packages' defaults part: the JAX package's build
+    fails and it takes PIL for everything, while the port builds the loader
+    without the codecs, so PIL decodes and C++ resizes and jitters (the
+    same draws as the codec build on the same decode; within 1 step of
+    JAX's PIL resize, and jittered within phase 18's bounds of JAX's PIL
+    jitter). The port keeps its path there: lazy R1/16 through the trainer
+    with PIL alone ran 13-25 % slower on an H100 (PERF.md).
+    `use_native=False` gives JAX's PIL path;
   * `SyntheticDataset`: a fixed random image per index, no filesystem;
   * `split_dataset`: the 70/30 index split; `build_dataset`: the factory.
 

@@ -23,16 +23,24 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     return torch.where(x >= 0, x, x * slope)
 
 
-def blend(a: torch.Tensor, b: torch.Tensor, alpha: float) -> torch.Tensor:
+def blend(a: torch.Tensor, b: torch.Tensor, alpha) -> torch.Tensor:
     """(1 - alpha)·a + alpha·b — the progressive fade-in blend.
 
     Both weights are f32 (as `pggan_tpu/ops/basic.py:48-64`: a bf16 alpha
     would quantise the fade to 2⁻⁸ steps) and so is the arithmetic; the
-    result returns in a's dtype.
+    result returns in a's dtype. `alpha` is a float or a 0-d tensor on a's
+    device, read when the blend runs (a captured step reads it at every
+    replay, as JAX's traced alpha); both round alike: w_b = f32(alpha),
+    w_a = 1 − w_b in f32.
     """
-    w_b = np.float32(alpha)
-    w_a = np.float32(1.0) - w_b
-    out = float(w_a) * a.float() + float(w_b) * b.float()
+    if isinstance(alpha, torch.Tensor):
+        w_b = alpha.to(dtype=torch.float32)
+        w_a = 1.0 - w_b
+    else:
+        w_b = np.float32(alpha)
+        w_a = float(np.float32(1.0) - w_b)
+        w_b = float(w_b)
+    out = w_a * a.float() + w_b * b.float()
     return out.to(a.dtype)
 
 

@@ -237,6 +237,8 @@ def load_adam_state_from_jax(opt: torch.optim.Adam, module: nn.Module,
                         f"shape mismatch for 0/{moment}/{prefix}/{key}: checkpoint "
                         f"{tuple(value.shape)} vs model {tuple(param.shape)}")
                 moments[slot] = value.to(param).contiguous()
-            # Adam keeps its step count as a CPU f32 scalar (not fused, not
-            # capturable).
-            opt.state[param] = {"step": torch.tensor(float(count)), **moments}
+            # Adam keeps its step count as an f32 scalar: on the host, or
+            # on the weight's device when it is capturable (`train/step.py:
+            # make_optimizers`).
+            on = param.device if opt.defaults["capturable"] else None
+            opt.state[param] = {"step": torch.tensor(float(count), device=on), **moments}

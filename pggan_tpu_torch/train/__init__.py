@@ -4,7 +4,8 @@
     python -m pggan_tpu_torch.train RUN_ID [--config configs.yaml]
         [--ckpt_id ID] [--ckpt_step N] [--max_step N] [--loss_mode r1|wgangp]
         [--data_backend auto|folder|synthetic] [--compute_dtype float32|bfloat16]
-        [--use_mGPU | --no_mGPU] [--use_wandb] [--device cuda]
+        [--steps_per_dispatch auto|N] [--use_mGPU | --no_mGPU] [--use_wandb]
+        [--device cuda]
 
 Runs on the card (`--device cuda`, the default) and exits non-zero when
 there is none; `--device cpu` runs the plain PyTorch versions of the
@@ -25,8 +26,14 @@ environment, `main` spawns one rank per visible card on a free loopback
 port, as the reference's train.py does. Without `use_mGPU` it is one
 process and no group.
 
-The modules: `step.py` (the train step), `trainer.py` (the loop, the
-schedule's jumps, checkpoints), `schedule.py` (the progressive schedule).
+`--steps_per_dispatch N` (or the key) runs windows of N steps where no
+host action falls, with `r1_interval: 1`; on a card each window replays the
+step captured in a CUDA graph. 'auto' is 8 up to 128², else 1; N > 1 with
+lazy R1 (`r1_interval` > 1) raises, as the JAX trainer does.
+
+The modules: `step.py` (the train step), `graphs.py` (its CUDA-graph
+capture and replay), `trainer.py` (the loop, the windows, the schedule's
+jumps, checkpoints), `schedule.py` (the progressive schedule).
 """
 
 from __future__ import annotations
@@ -64,6 +71,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         default=None)
     parser.add_argument("--compute_dtype", choices=["float32", "bfloat16"],
                         default=None)
+    parser.add_argument("--steps_per_dispatch", default=None,
+                        help="steps a dispatch in event-free windows (an int, or "
+                             "'auto': 8 up to 128x128, else 1); on a card each window "
+                             "replays the step captured in a CUDA graph")
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (default: cuda)")
     return parser.parse_args(argv)
@@ -118,6 +129,9 @@ def main(argv=None) -> int:
         print("usage: python -m pggan_tpu_torch.train RUN_ID [--flags]", file=sys.stderr)
         return 2
     cfg.run_id = run_id
+    if ns.steps_per_dispatch is not None:
+        cfg["steps_per_dispatch"] = ("auto" if ns.steps_per_dispatch == "auto"
+                                     else int(ns.steps_per_dispatch))
     for key in ("ckpt_id", "ckpt_step", "use_mGPU", "use_wandb", "max_step", "loss_mode",
                 "data_backend", "compute_dtype"):
         value = getattr(ns, key)

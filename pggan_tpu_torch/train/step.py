@@ -29,9 +29,14 @@ the gradient of the global batch. The WGAN-GP penalty and drift are sums
 over the batch, so a rank weighs its own sum by W before the average. The
 step's metrics stay the rank's own; the trainer averages them on
 loss_cycle steps. The JAX package's runtime
-`lax.cond` for lazy R1 and its `lax.scan` chunking are not ported: the
-trainer runs a lazy-R1 window as one `include_r1=True` step followed by
-`include_r1=False` steps.
+`lax.cond` for lazy R1 is not ported: the trainer runs a lazy-R1 window as
+one `include_r1=True` step followed by `include_r1=False` steps. Its
+`lax.scan` chunking (`make_chunked_train_step`) is `train/graphs.py`: the
+step captured in a CUDA graph and replayed once a step of the window. So
+the step reads no device value on the host, and takes `alpha` and
+`r1_scale` as floats or as 0-d f32 tensors on its device, read when it runs
+(the same bits either way); `resolve_steps_per_dispatch` is JAX's window
+length rule.
 
 `eval_losses` is the held-out evaluation forward of the trainer's
 `validation` (`pggan_tpu/train/trainer.py:598-625`): the same real fade, no
@@ -70,12 +75,16 @@ class TrainState:
 def make_optimizers(cfg, G: Generator, D: Discriminator
                     ) -> Tuple[torch.optim.Adam, torch.optim.Adam]:
     """Fresh Adam for each network (`step.py:58-66`). torch's Adam places
-    eps as optax's does: lr·m̂ / (sqrt(v̂) + eps)."""
+    eps as optax's does: lr·m̂ / (sqrt(v̂) + eps). On a card it is
+    `capturable` (its step count and bias correction on the device), so a
+    CUDA graph can capture its step (`train/graphs.py`); eager steps there
+    use the same settings, so both give the same bits. On the CPU it keeps
+    the count on the host."""
     betas = (float(cfg.beta1), float(cfg.beta2))
-    return (torch.optim.Adam(G.parameters(), lr=float(cfg.lr_G), betas=betas,
-                             eps=float(cfg.adam_eps)),
-            torch.optim.Adam(D.parameters(), lr=float(cfg.lr_D), betas=betas,
-                             eps=float(cfg.adam_eps)))
+    capturable = next(G.parameters()).is_cuda
+    return tuple(torch.optim.Adam(net.parameters(), lr=float(lr), betas=betas,
+                                  eps=float(cfg.adam_eps), capturable=capturable)
+                 for net, lr in ((G, cfg.lr_G), (D, cfg.lr_D)))
 
 
 def init_train_state(cfg, G: Generator, D: Discriminator, rng: torch.Generator,
@@ -95,7 +104,22 @@ def normalize_images(img: torch.Tensor) -> torch.Tensor:
     return img.float()
 
 
-def fade_in_real(img: torch.Tensor, alpha: float) -> torch.Tensor:
+def resolve_steps_per_dispatch(cfg, scale_index: int) -> int:
+    """The window length of `steps_per_dispatch` (`step.py:509-523`): 1
+    runs every step alone; 'auto' is 8 at resolutions up to 128², else 1
+    (JAX's rule, kept as it is; PERF.md has the card's rates); below 1
+    raises."""
+    v = cfg["steps_per_dispatch"] if "steps_per_dispatch" in cfg else 1
+    if v == "auto":
+        res = 2 ** (scale_index + 2)
+        return 8 if res <= 128 else 1
+    n = int(v)
+    if n < 1:
+        raise ValueError(f"steps_per_dispatch must be >= 1, got {n}")
+    return n
+
+
+def fade_in_real(img: torch.Tensor, alpha) -> torch.Tensor:
     """The real fade-in of scale > 0 (`step.py:258-277`): NHWC uint8 or
     float → f32 (1-α)·upscale2d(downscale2d(real)) + α·real, NHWC."""
     real = normalize_images(img).permute(0, 3, 1, 2)
@@ -142,7 +166,9 @@ def make_train_step(cfg, scale_index: int, *, include_r1: Optional[bool] = None,
     `include_r1` (loss_mode 'r1'): None or True applies the penalty, False
     leaves it out (the tail of a lazy window). `r1_scale` multiplies the
     penalty; None → r1_interval, the JAX package's default for its static
-    programs (`step.py:208-214`).
+    programs (`step.py:208-214`); a 0-d f32 tensor is read at each call (a
+    captured lead step's window length). `alpha` may be a float or a 0-d
+    f32 tensor on the step's device.
 
     `grad_sync(grads)`, when given, runs on each network's gradients between
     its `backward` and its optimizer step; `rank` and `world_size` place this
@@ -158,12 +184,13 @@ def make_train_step(cfg, scale_index: int, *, include_r1: Optional[bool] = None,
         raise ValueError(f"unknown loss mode {loss_mode!r}")
     r1_target = str(cfg.r1_target)
     with_r1 = include_r1 is None or bool(include_r1)
-    r1_mult = float(r1_scale) if r1_scale is not None else float(cfg.r1_interval)
+    r1_mult = (r1_scale if isinstance(r1_scale, torch.Tensor) else
+               float(r1_scale) if r1_scale is not None else float(cfg.r1_interval))
     apply_mbn = bool(cfg.apply_minibatch_norm)
     ema_decay = float(cfg.g_ema_decay)
     dt = torch.bfloat16 if str(cfg.compute_dtype) == "bfloat16" else torch.float32
 
-    def step(state: TrainState, img_real: torch.Tensor, alpha: float, *,
+    def step(state: TrainState, img_real: torch.Tensor, alpha, *,
              z1: Optional[torch.Tensor] = None, z2: Optional[torch.Tensor] = None,
              eps: Optional[torch.Tensor] = None
              ) -> Tuple[Metrics, Tuple[torch.Tensor, torch.Tensor]]:

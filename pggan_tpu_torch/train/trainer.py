@@ -11,7 +11,13 @@ starts fresh optimizers (the reference discards Adam's moments at every
 jump) and builds the next scale's step. Lazy R1 (`r1_interval > 1`) runs
 the JAX trainer's window cadence (`_chunk_window`, `trainer.py:388-426`): a
 window of k steps between host actions starts with one step whose penalty
-is scaled by k, and its k−1 other steps skip the penalty.
+is scaled by k, and its k−1 other steps skip the penalty. Without lazy R1,
+`steps_per_dispatch` k > 1 runs windows of exactly k steps where no host
+action falls (JAX's all-or-nothing rule; 'auto': 8 up to 128²). On a card
+both kinds of window replay the scale's steps captured in CUDA graphs
+(`train/graphs.py`, the counterpart of JAX's one-program chunk); on the CPU
+they run the eager steps. Single steps (those a host action reads) stay
+eager.
 
 `fit` runs the JAX trainer's loop (`trainer.py:428-527`): a checkpoint
 before each `ckpt_cycle` step (the saved state holds exactly that many
@@ -58,9 +64,9 @@ them. The minibatch-stddev statistic stays per rank, which equals the
 global batch's grouping (the JAX mesh's) only when each rank's batch is a
 multiple of its group, so another batch raises. The device data cache
 needs one rank (`auto` is off, `true` raises), as JAX's multi-process
-rule.
-
-Not ported yet (ROADMAP.md queue 1): `steps_per_dispatch`.
+rule. After each scale's first window, `utils/debug.py:
+check_replication_consistency` checks that the ranks' weights are equal
+bit for bit, and raises naming the first that is not.
 """
 
 from __future__ import annotations
@@ -90,10 +96,12 @@ from pggan_tpu_torch.ops.equalized import (adam_state_to_jax,
                                            load_adam_state_from_jax,
                                            load_params_from_jax, params_to_jax)
 from pggan_tpu_torch.parallel import mesh
+from pggan_tpu_torch.train import graphs
 from pggan_tpu_torch.train.schedule import ProgressiveSchedule
 from pggan_tpu_torch.train.step import (TrainState, eval_losses, init_train_state,
-                                        make_train_step)
+                                        make_train_step, resolve_steps_per_dispatch)
 from pggan_tpu_torch.utils import checkpoint as ckpt_lib
+from pggan_tpu_torch.utils.debug import check_replication_consistency
 from pggan_tpu_torch.utils.image import save_image as save_image_grid
 from pggan_tpu_torch.utils.logging import MetricLogger
 
@@ -157,6 +165,12 @@ class ProgressiveGANTrainer:
         self._fid_extractor_cache = None
         self._step_fn = None
         self._r1_interval = 1
+        self._chunk_size = 1
+        # windows replay captured steps on a card; the eager steps elsewhere
+        # (tools/bench_e2e_torch.py turns it off to time the eager windows)
+        self.use_graphs = graphs.graphed(self.device)
+        self._graphs: Optional[graphs.StepGraphs] = None
+        self._replicas_checked = False
         self._last_metrics: Dict[str, torch.Tensor] = {}
         self._rate_anchor = None
         # one writer thread: checkpoints are written in the order they are
@@ -204,6 +218,7 @@ class ProgressiveGANTrainer:
                      G_ema: Optional[Generator] = None) -> None:
         self.state = init_train_state(self.cfg, G, D, rng, G_ema)
         self._rate_anchor = None        # the batch may change with the scale
+        self._drop_graphs()
 
     def set_dataset(self) -> None:
         """The dataset at the current resolution and its 70/30 split. The
@@ -304,6 +319,9 @@ class ProgressiveGANTrainer:
         return make_train_step(self.cfg, self.schedule.scale_index, **kw)
 
     def _build_step_fn(self) -> None:
+        """The scale's single step and window length (`trainer.py:303-351`).
+        An explicit `steps_per_dispatch` > 1 with lazy R1 raises, as in JAX
+        (lazy R1 makes its own windows); 'auto' then defers to them."""
         cfg = self.cfg
         self._r1_interval = int(cfg.r1_interval) if str(cfg.loss_mode) == "r1" else 1
         if self._r1_interval > 1:
@@ -311,6 +329,29 @@ class ProgressiveGANTrainer:
             self._step_fn = self._make_step(include_r1=True, r1_scale=1.0)
         else:
             self._step_fn = self._make_step()
+        self._chunk_size = resolve_steps_per_dispatch(cfg, self.schedule.scale_index)
+        if self._chunk_size > 1 and self._r1_interval > 1:
+            if cfg["steps_per_dispatch"] != "auto":
+                raise ValueError(
+                    "steps_per_dispatch > 1 is incompatible with r1_interval > 1 (lazy R1 "
+                    "dispatches its own r1_interval-length windows); use "
+                    "steps_per_dispatch: auto or r1_interval: 1")
+            self._chunk_size = 1
+        self._drop_graphs()
+
+    def _drop_graphs(self) -> None:
+        """Forget the captured steps: they hold the addresses of tensors
+        that a new state, optimizer or checkpoint replaces."""
+        self._graphs = None
+        self._replicas_checked = False
+
+    def _step_graphs(self) -> graphs.StepGraphs:
+        if self._graphs is None:
+            note = (" (in a process group the step's NCCL all-reduce is captured "
+                    "with it)" if self.distributed else "")
+            self._graphs = graphs.StepGraphs(self.state, self._make_step, self.device,
+                                             note=note, verbose=self.is_master)
+        return self._graphs
 
     # -- the loop -------------------------------------------------------------
     def train_step(self) -> Images:
@@ -320,27 +361,69 @@ class ProgressiveGANTrainer:
             self.state, next(self._pipeline), float(self.schedule.alpha))
         return images
 
+    def train_chunk(self, k: int) -> None:
+        """A `steps_per_dispatch` window: k steps of the scale's step over the
+        next k batches (`trainer.py:360-379`), on a card k replays of its
+        captured step. The window's metrics are its last step's."""
+        alpha = float(self.schedule.alpha)
+        if not self.use_graphs:
+            for _ in range(k):
+                self._last_metrics, _ = self._step_fn(self.state, next(self._pipeline), alpha)
+            return
+        runner = self._step_graphs()
+        for _ in range(k):
+            metrics = runner.run("step", next(self._pipeline), alpha)
+        # the next replay rewrites the graph's outputs
+        self._last_metrics = {name: v.clone() for name, v in metrics.items()}
+        self._check_replicas()
+
     def train_window(self, k: int) -> None:
         """A lazy-R1 window of k steps: the first applies the penalty scaled
-        by k, the others none (`step.py:470-498`). The window's metrics are
-        its last step's, with the first step's L_D_r1."""
+        by k, the others none (`step.py:470-498`); on a card the lead's and
+        the tail's captured steps replayed. The window's metrics are its last
+        step's, with the first step's L_D_r1."""
         alpha = float(self.schedule.alpha)
-        lead = self._make_step(include_r1=True, r1_scale=float(k))
-        tail = self._make_step(include_r1=False)
-        lead_metrics, _ = lead(self.state, next(self._pipeline), alpha)
+        if not self.use_graphs:
+            lead = self._make_step(include_r1=True, r1_scale=float(k))
+            tail = self._make_step(include_r1=False)
+            lead_metrics, _ = lead(self.state, next(self._pipeline), alpha)
+            for _ in range(k - 1):
+                self._last_metrics, _ = tail(self.state, next(self._pipeline), alpha)
+            self._last_metrics["L_D_r1"] = lead_metrics["L_D_r1"]
+            return
+        runner = self._step_graphs()
+        r1 = runner.run("lead", next(self._pipeline), alpha, r1_scale=k)["L_D_r1"].clone()
         for _ in range(k - 1):
-            self._last_metrics, _ = tail(self.state, next(self._pipeline), alpha)
-        self._last_metrics["L_D_r1"] = lead_metrics["L_D_r1"]
+            metrics = runner.run("tail", next(self._pipeline), alpha)
+        self._last_metrics = {name: v.clone() for name, v in metrics.items()}
+        self._last_metrics["L_D_r1"] = r1
+        self._check_replicas()
+
+    def _check_replicas(self) -> None:
+        """In a process group, once a scale after its first window: the
+        ranks' weights equal bit for bit (the claim of the module
+        docstring), or raise."""
+        if self.distributed and not self._replicas_checked:
+            state = self.state
+            check_replication_consistency(
+                {"G": state.G, "D": state.D, "G_ema": state.G_ema})
+            self._replicas_checked = True
 
     def _chunk_window(self, step: int, total: int) -> int:
-        """The length of the lazy-R1 window that starts at `step`: up to
-        r1_interval steps, cut at the first host action (a log, image, FID
-        or checkpoint cycle, a scale or alpha jump) or at `total`; 1 when
-        R1 is not lazy (`trainer.py:388-426`, without steps_per_dispatch).
-        So the sample grid and the log lines always come from single steps."""
-        if self._r1_interval <= 1:
-            return 1
-        k = min(self._r1_interval, total - step)
+        """The length of the window that starts at `step` (`trainer.py:
+        388-426`). Lazy R1: up to r1_interval steps, cut at the first host
+        action (a log, image, FID or checkpoint cycle, a scale or alpha
+        jump) or at `total`. Otherwise `steps_per_dispatch` k when steps
+        [step, step + k) hold no host action and end by `total`, else 1
+        (all or nothing). So the sample grid and the log lines always come
+        from single steps."""
+        lazy = self._r1_interval > 1
+        if lazy:
+            k = min(self._r1_interval, total - step)
+        else:
+            k = self._chunk_size
+            if k < 2 or step + k > total:
+                return 1
         if k < 1:
             return 1
         cfg = self.cfg
@@ -350,7 +433,7 @@ class ProgressiveGANTrainer:
         jumps = (self.schedule.next_scale_jump_step, self.schedule.next_alpha_jump_step)
         for u in range(step, step + k):
             if any(c > 0 and u % c == 0 for c in cycles) or u in jumps:
-                return max(u - step, 1)
+                return max(u - step, 1) if lazy else 1
         return k
 
     def fit(self, run_id: Optional[str] = None, *,
@@ -397,7 +480,10 @@ class ProgressiveGANTrainer:
                 self.check_jump(step)
                 k = self._chunk_window(step, total)
                 if k > 1:
-                    self.train_window(k)
+                    if self._r1_interval > 1:
+                        self.train_window(k)
+                    else:
+                        self.train_chunk(k)
                     step += k
                     self.global_step = step
                     continue
@@ -681,6 +767,7 @@ class ProgressiveGANTrainer:
             if self.is_master:
                 print(f"[pggan_tpu_torch] latents reseeded from (seed, step "
                       f"{self.global_step}): {why}")
+        self._drop_graphs()             # the optimizers' state tensors are new
         if self.is_master:
             print(f"checkpoint {cfg.ckpt_id}@{self.global_step} restored "
                   f"(scale={self.schedule.scale_index}, alpha={self.schedule.alpha})")

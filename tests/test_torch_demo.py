@@ -130,14 +130,17 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "pggan_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_step.py",
         REPO / "tools" / "time_row_kernels.py", REPO / "tools" / "bench_serving_torch.py",
-        REPO / "tools" / "probe_device_ms.py", REPO / "tests" / "torch_rank_worker.py"]
+        REPO / "tools" / "probe_device_ms.py", REPO / "tests" / "torch_rank_worker.py",
+        REPO / "tools" / "bench_e2e_torch.py", REPO / "tools" / "bench_pipeline_torch.py",
+        REPO / "tools" / "train_watchdog_torch.py"]
     port = REPO / "pggan_tpu_torch"
     assert {port / "models" / "torch_port.py", port / "import_ckpt.py",
             port / "parallel" / "__init__.py", port / "parallel" / "mesh.py",
             port / "parallel" / "dryrun.py", port / "utils" / "stats.py",
             port / "losses" / "gan.py", port / "native" / "__init__.py",
             port / "native" / "build.py", port / "native" / "loader.py",
-            port / "data" / "grain_pipeline.py"} <= set(files)
+            port / "data" / "grain_pipeline.py", port / "train" / "graphs.py",
+            port / "utils" / "debug.py"} <= set(files)
     banned = []
     for path in files:
         for module in _imported_modules(path):

@@ -69,6 +69,26 @@ def workdir(tmp_path_factory):
     return root, str(config)
 
 
+def test_analyze_run_reads_the_port_run(workdir):
+    """`tools/analyze_run.py --json` (a tool without a framework) digests
+    the port's run directory as a JAX run's: its loss records with
+    imgs_per_sec, per stage of the config snapshot's schedule (the rate of
+    a scale's first loss line after a jump is not logged)."""
+    import subprocess
+    import sys
+
+    root, _ = workdir
+    done = subprocess.run([sys.executable, os.path.join(REPO, "tools", "analyze_run.py"),
+                           str(root / "runs" / "full"), "--json"],
+                          capture_output=True, text=True, timeout=120)
+    assert done.returncode == 0, done.stderr
+    doc = json.loads(done.stdout.splitlines()[-1])
+    assert doc["run"] == "full" and doc["last_step"] == 6
+    assert [(s["resolution"], s["last_step_seen"]) for s in doc["stages"]] == [(4, 2), (8, 6)]
+    assert all(s["median_imgs_per_sec"] > 0 for s in doc["stages"])
+    assert doc["fid"] == [] and doc["val"] == []
+
+
 def _checkpoint(root, run, step):
     """{net: (params, opt, meta)} of a run's checkpoint at `step`."""
     return {name: port_ckpt.load_checkpoint(str(root / "runs"), run, name, step)

@@ -93,3 +93,25 @@ def main_rank(rank, world, argv, log_dir, sigterm_rank=None, sigterm_step=None):
             raise
     if rc:
         raise SystemExit(rc)
+
+
+def replication_rank(rank, world, out_dir, changed):
+    """`utils/debug.py:check_replication_consistency` on a small G built from
+    one seed on every rank; with `changed`, rank 1 first moves the last bit
+    of one weight (`changed` names it). Writes 'ok' or the error to
+    `out_dir/rank{rank}.txt`."""
+    from pggan_tpu_torch.models.generator import Generator
+    from pggan_tpu_torch.utils.debug import check_replication_consistency
+
+    G = Generator(latent_dim=16, depths=[16, 8], scale=1, seed=7)
+    if changed and rank == 1:
+        with torch.no_grad():
+            weight = dict(G.named_parameters())[changed].view(-1)
+            weight[3] = torch.nextafter(weight[3], torch.tensor(float("inf")))
+    try:
+        check_replication_consistency({"G": G, "G_ema": None})
+        result = "ok"
+    except AssertionError as exc:
+        result = str(exc)
+    with open(os.path.join(out_dir, f"rank{rank}.txt"), "w") as f:
+        f.write(result)

@@ -4,11 +4,17 @@ filtered_lrelu) goes, on one CUDA card.
 
     python3 tools/profile_torch_step.py [--dtype bfloat16|float32]
         [--tf32] [--cudnn_benchmark] [--no_r1 | --forward | --filtered_lrelu]
-        [--steps 3] [--top 15]
+        [--scale 6] [--batch 16] [--config configs.yaml]
+        [--steps_per_dispatch 1] [--steps 3] [--top 15]
 
-Builds G and D at scale 6 (256×256) at the full width of configs.yaml from
-their seeded initialisation, runs 2 warm-up steps, then profiles `--steps`
-train steps at batch 16 with `torch.profiler` (CPU and CUDA activities).
+Builds G and D at `--scale` (default 6, 256×256) with the model of
+`--config` (default configs.yaml: full width) from their seeded
+initialisation, runs 2 warm-up steps, then profiles `--steps` train steps
+at `--batch` (default 16) with `torch.profiler` (CPU and CUDA activities).
+`--steps_per_dispatch N` > 1 profiles the step as the trainer's windows run
+it on a card: captured in a CUDA graph (`train/graphs.py`) and replayed N
+times a profiled step (the warm-up captures it); `--steps` then counts
+windows.
 Prints the wall time per step, the device's busy time per step (the union
 of the kernels' intervals) and idle share, the kernel time summed over
 streams, the launches of the port's kernels, the kernels that took the
@@ -26,6 +32,7 @@ Needs a card; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import subprocess
 import sys
@@ -37,6 +44,24 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH, SCALE, ALPHA = 16, 6, 0.5
 PORT_KERNELS = ("norm_rows_vec_kernel", "norm_rows_kernel", "lrelu_norm_rows_bwd_vec_kernel",
                 "lrelu_norm_rows_bwd_kernel", "mb_stddev_kernel", "bias_lrelu_gain_kernel")
+
+
+def kernel_events(prof):
+    """The device's kernels of a profile (an operator row, aten::..., repeats
+    the time of the kernels it launched)."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def busy_us(events) -> float:
+    """The union of the kernels' intervals, µs: kernels on several streams
+    overlap, so their summed time can exceed the window."""
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy
 
 
 def main(argv=None) -> int:
@@ -53,6 +78,13 @@ def main(argv=None) -> int:
                       help="G's sampling forward instead of the train step")
     mode.add_argument("--filtered_lrelu", action="store_true",
                       help="ops.filtered_lrelu at [16,64,256,256] instead of the step")
+    parser.add_argument("--scale", type=int, default=SCALE)
+    parser.add_argument("--batch", type=int, default=BATCH)
+    parser.add_argument("--config", default=os.path.join(REPO, "configs.yaml"),
+                        help="the YAML whose model keys (depths, latent_dim, ...) to use")
+    parser.add_argument("--steps_per_dispatch", type=int, default=1,
+                        help="> 1: replay the step captured in a CUDA graph this many "
+                             "times a profiled step (the trainer's window on a card)")
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--top", type=int, default=15)
     ns = parser.parse_args(argv)
@@ -68,13 +100,14 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = ns.tf32
     torch.backends.cuda.matmul.allow_tf32 = ns.tf32
     torch.backends.cudnn.benchmark = ns.cudnn_benchmark
-    cfg = Config.from_yaml(os.path.join(REPO, "configs.yaml"))
-    cfg.update(compute_dtype=ns.dtype, batch_per_gpu=BATCH)
+    cfg = Config.from_yaml(ns.config)
+    cfg.update(compute_dtype=ns.dtype, batch_per_gpu=ns.batch, use_mGPU=False)
+    batch_size, res = ns.batch, 4 * 2 ** ns.scale
     gen = torch.Generator(device="cuda").manual_seed(0)
     dt = torch.bfloat16 if ns.dtype == "bfloat16" else torch.float32
     if ns.filtered_lrelu:
         from pggan_tpu_torch import ops
-        x = torch.randn((BATCH, 256, 256, 64), generator=gen, device="cuda").to(dt)
+        x = torch.randn((batch_size, 256, 256, 64), generator=gen, device="cuda").to(dt)
         x = x.permute(0, 3, 1, 2)                          # channels_last
         b = torch.randn((64,), generator=gen, device="cuda")
         f = ops.setup_filter([1, 3, 3, 1])
@@ -84,26 +117,39 @@ def main(argv=None) -> int:
                 ops.filtered_lrelu(x, f, f, b, up=2, down=2, padding=3)
     else:
         trainer = ProgressiveGANTrainer(cfg, device="cuda")
-        trainer.schedule.scale_index = SCALE
+        trainer.schedule.scale_index = ns.scale
         trainer.initialize_models()
         if ns.forward:
             G = trainer.state.G
-            z = torch.randn((BATCH, int(cfg.latent_dim)), generator=gen, device="cuda")
+            z = torch.randn((batch_size, int(cfg.latent_dim)), generator=gen, device="cuda")
 
             def run():
                 with torch.no_grad():
                     G(z, ALPHA, compute_dtype=dt)
         else:
-            step = make_train_step(cfg, SCALE, include_r1=not ns.no_r1)
-            batch = torch.randint(0, 256, (BATCH, 256, 256, 3), generator=gen,
+            batch = torch.randint(0, 256, (batch_size, res, res, 3), generator=gen,
                                   device="cuda", dtype=torch.uint8)
+            if ns.steps_per_dispatch > 1:
+                from pggan_tpu_torch.train.graphs import StepGraphs
+                runner = StepGraphs(trainer.state, functools.partial(make_train_step, cfg,
+                                                                     ns.scale), "cuda")
+                kind = "tail" if ns.no_r1 else "step"
 
-            def run():
-                step(trainer.state, batch, ALPHA)
+                def run():
+                    for _ in range(ns.steps_per_dispatch):
+                        runner.run(kind, batch, ALPHA)
+            else:
+                step = make_train_step(cfg, ns.scale, include_r1=not ns.no_r1)
+
+                def run():
+                    step(trainer.state, batch, ALPHA)
     for _ in range(2):
         run()
     torch.cuda.synchronize()
 
+    graphed = ns.steps_per_dispatch > 1 and not (ns.forward or ns.filtered_lrelu)
+    n = ns.steps * (ns.steps_per_dispatch if graphed else 1)       # train steps
+    replayed = runner.launches_replayed() if graphed else {}
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     kernels.reset_launch_counts()
     with torch.profiler.profile(activities=activities) as prof:
@@ -111,39 +157,30 @@ def main(argv=None) -> int:
         for _ in range(ns.steps):
             run()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / ns.steps
-    launches = {k: v // ns.steps for k, v in kernels.launches.items()}
-
-    def is_kernel(evt):
-        # A kernel is the device's own event; an operator row (aten::...)
-        # repeats the time of the kernels it launched.
-        return (evt.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(evt, "is_user_annotation", False))
-    events = [e for e in prof.events() if is_kernel(e)]
-    # Busy = the union of the kernels' intervals: kernels on several streams
-    # overlap, so their summed time can exceed the window.
-    busy_us, end = 0.0, float("-inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
-        busy_us += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-    busy_ms = busy_us / 1e3 / ns.steps
-    summed_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / ns.steps
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    launches = {k: v // n for k, v in kernels.launches.items()}
+    if graphed:         # the wrappers count calls, which a replay makes none of
+        launches = {k: (v - replayed[k]) // n for k, v in runner.launches_replayed().items()}
+    events = kernel_events(prof)
+    busy_ms = busy_us(events) / 1e3 / n
+    summed_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / n
     streams = len({e.thread for e in events})
     by_name = {}
     for e in events:
         total, count = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (total + e.time_range.elapsed_us(), count + 1)
-    rows = [(total / 1e3 / ns.steps, count // ns.steps, name)
+    rows = [(total / 1e3 / n, count // n, name)
             for name, (total, count) in by_name.items()]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]
     what = ("sampling forward" if ns.forward else
             "filtered_lrelu [16,64,256,256] up 2 down 2" if ns.filtered_lrelu else
-            f"train step {'without R1' if ns.no_r1 else 'with R1'}")
+            f"train step {'without R1' if ns.no_r1 else 'with R1'}"
+            + (f" x{ns.steps_per_dispatch} graph replays" if ns.steps_per_dispatch > 1 else ""))
     label = (f"{ns.dtype}{' TF32' if ns.tf32 else ''}"
              f"{' cudnn.benchmark' if ns.cudnn_benchmark else ''}")
-    print(f"[profile] {what} 256x256 batch {BATCH}, {label} ({card}): wall "
+    print(f"[profile] {what} {res}x{res} batch {batch_size}, {label} ({card}): wall "
           f"{wall_ms:.2f} ms/step under the profiler; device busy {busy_ms:.2f} "
           f"ms/step (idle {100 * max(0.0, 1 - busy_ms / wall_ms):.1f} %); kernel "
           f"time summed {summed_ms:.2f} ms/step on {streams} stream(s); the port's "
