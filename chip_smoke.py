@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's sampling, training, ops, evaluation, serving,
-import, data-parallel, native-loader, 1024² and chunked-dispatch paths once
-on one CUDA card.
+import, data-parallel, native-loader, 1024² and chunked-dispatch paths and
+its submodel zoo once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -162,6 +162,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      capture's seconds, the peak memory); and phase 17's group of one
      through lazy windows with NCCL's all-reduce captured and
      `check_replication_consistency`.
+ 20. the submodel zoo at its published sizes, batch 16, numpy-seeded weights:
+     ArcFace IR-SE-50 (112²), BiSeNet (19 classes, 512²), e4e (18 styles,
+     256²), ReconNet (224²) into the face model at the BFM 2009 front face's
+     size (35,709 vertices, numpy-seeded bases, a grid triangulation, 68
+     landmarks),
+     LPIPS (AlexNet, pairs at 256²), PatchGAN (n_layers 3, width 64),
+     multiscale (3 scales × n_layers 6) and StarGAN-v2 (img_size 256)
+     discriminators at 256², and the latent MLP (code_dim 512): each
+     state_dict (the reference's keys for the five reference networks, and
+     BiSeNet's ResNet-18 alone) loaded with strict=True on the card and
+     through the port's converter on the CPU; the card's f32 forward (TF32
+     off) against the CPU's (the whole batch, or the first two samples and
+     the last for BiSeNet, e4e and ReconNet); the input gradients through
+     LPIPS and through id_loss on ArcFace embeddings, card against CPU, in
+     float64 and in f32; items/s in f32, TF32 and bf16 autocast (the median
+     of five windows and their spread) with TFLOP/s and peak memory; the
+     idle share of a
+     bf16 forward under torch.profiler; and no kernel of this repo launched.
 
 The second-to-last lines are a JSON object describing the kernels and the
 card's name and power limit; the last line is
@@ -317,6 +335,30 @@ CHUNK_SCALE, CHUNK_LOSS_CYCLE, CHUNK_RUN_STEPS, CHUNK_CUT = 4, 10, 40, 20
 RATE_SCALES, RATE_WINDOW, RATE_LAZY = (2, 4, 6), 8, 16
 RATE_STEPS = {2: 32, 4: 32, 6: 16}
 HIRES_CHUNK = 2
+# Phase 20: the submodel zoo at its published sizes (ZOO_SIDES), ZOO_BATCH a
+# batch, numpy-seeded weights. The card's f32 forward (TF32 off) against the
+# CPU's, max |diff| over the largest |value|, on the whole batch for the
+# networks of ZOO_CPU_WHOLE and on the samples ZOO_CPU_ROWS (the first two
+# and the last) for the others: cuDNN and the CPU sum in other orders
+# through up to ~100 convolutions (the port against JAX on the CPU: within
+# 1e-5 at the tests' sizes). Input gradients against the CPU's float64
+# ones: the card's float64 within ZOO_GRAD_RTOL of the largest value
+# (id_loss rounds the embeddings to f32 in both), its f32 within
+# ZOO_GRAD32_RTOL of each sample's norm (a ReLU or max-pool flip under
+# rounding moved up to 1.7e-3 on an H100; a wrong gradient moves ~1). The
+# face model at the size of the BFM 2009 front face the reference builds
+# (`transferBFM09`): 35,709 vertices, 68 landmarks, a seeded grid of
+# BFM_GRID_COLS columns for its triangles. Rates: after 3 warm-up forwards, ZOO_WINDOWS windows of CUDA
+# events, each of at least ZOO_WINDOW_MS of forwards; the median and the
+# spread of the windows.
+ZOO_SIDES = {"arcface": 112, "bisenet": 512, "e4e": 256, "reconnet": 224, "lpips": 256,
+             "patch": 256}
+ZOO_BATCH = 16
+ZOO_CPU_ROWS = (0, 1, ZOO_BATCH - 1)
+ZOO_CPU_WHOLE = ("arcface", "lpips", "patchgan", "multiscale", "stargan", "latent")
+ZOO_WINDOWS, ZOO_WINDOW_MS = 5, 100.0
+ZOO_CARD_RTOL, ZOO_GRAD_RTOL, ZOO_GRAD32_RTOL = 1e-4, 1e-6, 1e-2
+BFM_VERTICES, BFM_LANDMARKS, BFM_GRID_COLS = 35709, 68, 189
 # cuDNN and PyTorch kernels that only move data between layouts (the
 # work hires_pack removed on the TPU): matched in the profile's kernel names.
 LAYOUT_COPY_NAMES = ("copy", "transpose", "nchwToNhwc", "nhwcToNchw")
@@ -385,8 +427,9 @@ ACTIVATIONS = ("linear", "relu", "lrelu", "tanh", "sigmoid", "elu", "selu", "sof
 # launches) are means over SMALL_ITERS calls, not 20.
 SMALL_NUMEL, SMALL_ITERS = BATCH * 4 * 4 * 512, 200
 # H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s off
-# the tensor cores.
+# the tensor cores, dense TF32 and bf16 FLOP/s on them.
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
+TF32_FLOPS, BF16_FLOPS = 495e12, 989e12
 # Untimed replays before `device_ms` times its graph (see there).
 DEVICE_WARM_S = 0.1
 
@@ -3810,6 +3853,342 @@ def run_chunk_phase(train_mod, kernels, ckpt_lib, mesh, cfg, depths, tmp, card):
     return per_replay, replayed
 
 
+def grid_faces(n_vertices, cols):
+    """A stand-in for a mesh topology: vertex v at row v // cols,
+    column v % cols, two triangles a grid cell whose corners all exist (the
+    last row is partial), so vertices have 1-6 adjacent faces."""
+    rows = -(-n_vertices // cols)
+    idx = np.arange(rows * cols).reshape(rows, cols)
+    a, b, c, d = idx[:-1, :-1], idx[:-1, 1:], idx[1:, :-1], idx[1:, 1:]
+    tris = np.concatenate([np.stack([a, b, c], -1).reshape(-1, 3),
+                           np.stack([b, d, c], -1).reshape(-1, 3)])
+    return tris[(tris < n_vertices).all(axis=1)].astype(np.int32)
+
+
+def zoo_state_dict(module, seed):
+    """A numpy-seeded state_dict under `module`'s keys (the reference's, for
+    the five reference networks): He-normal convs, N(0, 1/in) linears
+    (EqualLinear N(0, 1)), biases and running means 0.1·N, running
+    variances and BatchNorm scales U(0.5, 1.5), each residual branch's last
+    BatchNorm (IR-SE `res_layer.4`, a basic block's `bn2`, a bottleneck's
+    `bn3`) U(0.1, 0.3) as a trained network holds it, PReLU slopes U(0.1,
+    0.4), LPIPS's 1×1 weights |N|/C, ReconNet's heads a tenth of He."""
+    from pggan_tpu_torch.models import backbones, e4e
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, value in module.state_dict().items():
+        shape = tuple(value.shape)
+        parent, _, leaf = key.rpartition(".")
+        owner = module.get_submodule(parent)
+        grand = module.get_submodule(parent.rpartition(".")[0])
+        if leaf == "num_batches_tracked":
+            sd[key] = np.asarray(0, np.int64)
+            continue
+        if leaf == "running_var":
+            v = rng.uniform(0.5, 1.5, shape)
+        elif leaf in ("running_mean", "bias"):
+            v = 0.1 * rng.standard_normal(shape)
+        elif isinstance(owner, backbones.BatchNorm):
+            residual = (key.endswith("res_layer.4.weight")
+                        or (isinstance(grand, backbones.BasicBlock) and parent.endswith("bn2"))
+                        or (isinstance(grand, backbones.Bottleneck) and parent.endswith("bn3")))
+            v = rng.uniform(0.1, 0.3, shape) if residual else rng.uniform(0.5, 1.5, shape)
+        elif isinstance(owner, torch.nn.PReLU):
+            v = rng.uniform(0.1, 0.4, shape)
+        elif isinstance(owner, e4e.EqualLinear):
+            v = rng.standard_normal(shape, dtype=np.float32)
+        elif "lpips_weights" in key:
+            v = np.abs(rng.standard_normal(shape)) / shape[1]
+        elif len(shape) == 4:
+            v = rng.standard_normal(shape, dtype=np.float32) * math.sqrt(2.0 / np.prod(shape[1:]))
+            if key.startswith("final_layers."):
+                v = 0.1 * v
+        else:
+            v = rng.standard_normal(shape, dtype=np.float32) * math.sqrt(1.0 / shape[1])
+        sd[key] = np.asarray(v, np.float32)
+    return sd
+
+
+def bfm_like_bases(seed):
+    """The face model at the BFM 2009 front face's size (BFM_VERTICES
+    vertices, BFM_LANDMARKS landmarks), numpy-seeded bases as the port's
+    default draws them, and a grid triangulation."""
+    v = BFM_VERTICES
+    rs = np.random.RandomState(seed)
+    return {"mean_shape": rs.randn(v * 3).astype(np.float32) * 0.1,
+            "id_base": rs.randn(v * 3, 80).astype(np.float32) * 0.01,
+            "exp_base": rs.randn(v * 3, 64).astype(np.float32) * 0.01,
+            "mean_tex": rs.rand(v * 3).astype(np.float32),
+            "tex_base": rs.randn(v * 3, 80).astype(np.float32) * 0.01,
+            "landmark_index": rs.choice(v, BFM_LANDMARKS, replace=False).astype(np.int32),
+            "face_buf": grid_faces(v, BFM_GRID_COLS)}
+
+
+def zoo_networks():
+    """(name, configuration, card module, CPU module, reference surface,
+    input maker, forward) for each network of phase 20. Each card module
+    takes its numpy-seeded state_dict with load_state_dict(strict=True) on
+    the card; the CPU module is the same state_dict through the port's
+    `convert_*_state_dict` where the reference has a key surface."""
+    from pggan_tpu_torch.losses import perceptual
+    from pggan_tpu_torch.models import backbones, e4e, face3d, faceparser, zoo
+
+    def images(side):
+        return lambda rng, n: (rng.uniform(-1, 1, (n, 3, side, side)).astype(np.float32),)
+
+    def pairs(side):
+        return lambda rng, n: images(side)(rng, n) + images(side)(rng, n)
+
+    s = ZOO_SIDES
+    return [
+        ("arcface", f"IR-SE-50, {s['arcface']}², 512-d", lambda: backbones.IRSE(
+            50, input_size=s["arcface"]), backbones.convert_arcface_state_dict, "ArcFace",
+         images(s["arcface"])),
+        ("bisenet", f"19 classes, ResNet-18 context path, {s['bisenet']}²",
+         lambda: faceparser.BiSeNet(19), faceparser.convert_bisenet_state_dict,
+         "BiSeNet (ResNet-18 keys under cp.resnet.)", images(s["bisenet"])),
+        ("e4e", f"IR-SE-50, 18 styles of 512, {s['e4e']}²",
+         lambda: e4e.Encoder4Editing(50, n_styles=18), e4e.convert_e4e_state_dict,
+         "Encoder4Editing", images(s["e4e"])),
+        ("reconnet", f"ResNet-50, 257 coefficients, {s['reconnet']}² → "
+                     f"compute_for_render on {BFM_VERTICES} vertices",
+         face3d.ReconNet, face3d.convert_reconnet_state_dict, "ReconNet",
+         images(s["reconnet"])),
+        ("lpips", f"AlexNet, pairs at {s['lpips']}²",
+         lambda: perceptual.PerceptualDistance(device=DEVICE),
+         functools.partial(perceptual.convert_lpips_state_dict, device="cpu"), "LPIPS",
+         pairs(s["lpips"])),
+        ("patchgan", f"n_layers 3, width 64, {s['patch']}²",
+         lambda: zoo.PatchDiscriminator(3, 64, 3), None, None, images(s["patch"])),
+        ("multiscale", f"3 scales x n_layers 6, width 64, {s['patch']}²",
+         lambda: zoo.MultiscaleDiscriminator(3, 3, 64, 6), None, None, images(s["patch"])),
+        ("stargan", f"img_size {s['patch']}, 1 domain",
+         lambda: zoo.StarGANDiscriminator(s["patch"]), None, None, images(s["patch"])),
+        ("latent", "code_dim 512, hidden 512 x 3",
+         lambda: zoo.LatentDiscriminator(512), None, None,
+         lambda rng, n: (rng.standard_normal((n, 512)).astype(np.float32),)),
+    ]
+
+
+def zoo_outputs(out):
+    """A forward's outputs as a flat list of tensors."""
+    if isinstance(out, dict):
+        return [out[k] for k in sorted(out)]
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def zoo_forward(net, xs, face=None):
+    """A network's outputs as a flat list; with `face`, the coefficients
+    and then `face.compute_for_render` of them."""
+    out = net(*xs)
+    if face is not None:
+        return [out] + zoo_outputs(face.compute_for_render(out.float()))
+    return zoo_outputs(out)
+
+
+def zoo_windows_ms(fn):
+    """ms a call of `fn`, one a window: 3 warm-up calls, then ZOO_WINDOWS
+    windows of CUDA events, each of as many calls as fill ZOO_WINDOW_MS
+    (from one timed call), sorted."""
+    once = time_ms(fn, iters=1)
+    iters = max(1, math.ceil(ZOO_WINDOW_MS / max(once, 1e-3)))
+    return sorted(time_ms(fn, iters=iters, warmup=0) for _ in range(ZOO_WINDOWS))
+
+
+def rel_err(got, want):
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    check(got.shape == want.shape, f"shapes {tuple(got.shape)} and {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), "non-finite values")
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@contextlib.contextmanager
+def zoo_mode(mode):
+    """f32 (TF32 off), tf32 (TF32 on for cuDNN and cuBLAS) or bf16
+    (autocast); TF32 is off again afterwards, as chip_smoke runs."""
+    tf32 = mode == "tf32"
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        with torch.autocast("cuda", torch.bfloat16, enabled=mode == "bf16"):
+            yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def run_zoo_phase(kernels, card):
+    """Phase 20: the submodel zoo at published sizes, batch ZOO_BATCH, on the
+    card."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from pggan_tpu_torch.losses import gan
+    from pggan_tpu_torch.models import backbones, face3d
+
+    t_phase = time.perf_counter()
+    before = dict(kernels.launches)
+    held = torch.cuda.memory_allocated()        # earlier phases' tensors
+    bases = bfm_like_bases(20)
+    bases["point_buf"] = face3d.build_point_buf(bases["face_buf"], BFM_VERTICES)
+    face_card = face3d.ParametricFaceModel(n_vertices=BFM_VERTICES, bases=bases, device=DEVICE)
+    face_cpu = face3d.ParametricFaceModel(n_vertices=BFM_VERTICES, bases=bases, device="cpu")
+    print(f"[20 zoo] face model: {BFM_VERTICES} vertices, {face_card.face_buf.shape[0]} "
+          f"triangles (a grid), point_buf {tuple(face_card.point_buf.shape)}, "
+          f"{BFM_LANDMARKS} landmarks")
+    for index, (name, config, build, convert, surface, make_inputs) in enumerate(zoo_networks()):
+        # 2. the state_dict (the reference's keys where it has them) loaded
+        # strictly on the card, and through the converter on the CPU
+        t0 = time.perf_counter()
+        module = build()
+        sd = zoo_state_dict(module, 2000 + index)
+        module = module.to(DEVICE)
+        module.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
+        cpu = convert(sd) if convert else build()
+        if not convert:
+            cpu.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
+        module.to(memory_format=torch.channels_last)
+        inputs = [torch.from_numpy(x) for x in make_inputs(np.random.default_rng(3000 + index),
+                                                            ZOO_BATCH)]
+        card_inputs = [x.to(DEVICE).contiguous(memory_format=torch.channels_last)
+                       if x.ndim == 4 else x.to(DEVICE) for x in inputs]
+        keys = f"{len(sd)} keys of the reference's {surface}" if surface else f"{len(sd)} keys"
+        if name == "bisenet":
+            resnet_sd = {k: v for k, v in sd.items() if k.startswith("cp.resnet.")}
+            resnet_sd.update({"cp.resnet.fc.weight": np.zeros((1000, 512), np.float32),
+                              "cp.resnet.fc.bias": np.zeros(1000, np.float32)})
+            resnet = backbones.convert_resnet18_state_dict(resnet_sd, torch_prefix="cp.resnet.")
+            keys += f"; its {len(resnet.state_dict())} ResNet-18 keys (+ fc, skipped) alone too"
+        print(f"[20 zoo] {name} ({config}): {keys} loaded with strict=True on the card and "
+              f"{'through the converter ' if convert else ''}on the CPU "
+              f"({time.perf_counter() - t0:.2f} s)")
+
+        face = face_card if name == "reconnet" else None
+        # 1. the card's f32 forward (TF32 off) against the CPU's, the same
+        # weights and inputs: the whole batch (ZOO_CPU_WHOLE; LPIPS's
+        # output is the batch mean) or the samples ZOO_CPU_ROWS; the face
+        # model's outputs against the CPU face model on the card's
+        # coefficients
+        rows = torch.arange(ZOO_BATCH) if name in ZOO_CPU_WHOLE else torch.tensor(ZOO_CPU_ROWS)
+        with torch.no_grad(), zoo_mode("f32"):
+            got = zoo_forward(module, card_inputs, face)
+            torch.cuda.synchronize()
+            want = zoo_forward(cpu, [x[rows] for x in inputs])
+            if face is not None:
+                want += zoo_outputs(face_cpu.compute_for_render(got[0].cpu()))
+            if name == "lpips":                 # and the five taps of the first images
+                got += module.features(card_inputs[0])
+                want += cpu.features(inputs[0])
+            errs = [rel_err(g if g.ndim == 0 or i > 0 and face is not None
+                            else g[rows.to(g.device)], w)
+                    for i, (g, w) in enumerate(zip(got, want))]
+        check(len(got) == len(want), f"{name}: {len(got)} outputs on the card, {len(want)} on "
+                                     f"the CPU")
+        err = max(errs)
+        check(err <= ZOO_CARD_RTOL, f"{name}: card against CPU {err:.3g} of the largest "
+                                    f"value (tolerance {ZOO_CARD_RTOL})")
+        shapes = ", ".join(str(list(g.shape)) for g in got)
+        print(f"[20 zoo] {name} card f32 (TF32 off) against the CPU on {len(rows)} of "
+              f"{ZOO_BATCH} samples: max |diff| {err:.3g} of the largest value (tolerance "
+              f"{ZOO_CARD_RTOL}); outputs {shapes}")
+
+        # 3. input gradients, as the reference's losses take them (each
+        # loss, a batch mean, is scaled by the batch: each sample's gradient
+        # is then its own whatever the batch), against the CPU's float64
+        # gradient: the whole batch for LPIPS, the samples ZOO_CPU_ROWS for
+        # ArcFace. The card's float64 gradient is held to ZOO_GRAD_RTOL of
+        # the largest value (id_loss itself computes in f32, as the
+        # reference's does); its f32 one (TF32 off) to ZOO_GRAD32_RTOL in
+        # each sample's norm. In f32 a ReLU input or a max-pool window within
+        # rounding of its kink or tie sends the gradient another way on one
+        # side: on an H100 five of LPIPS's 16 samples read 2.4e-5 to 1.7e-3
+        # of their norm while 0.65 % of the batch's values moved beyond 1e-4
+        # of the largest (the other samples: ~1e-6).
+        # A wrong gradient is wrong in norm. The samples beyond 1e-5 of
+        # their norm are printed.
+        if name in ("arcface", "lpips"):
+            rows = torch.arange(ZOO_BATCH) if name == "lpips" else torch.tensor(ZOO_CPU_ROWS)
+            other = torch.from_numpy(make_inputs(np.random.default_rng(4000 + index),
+                                                 ZOO_BATCH)[-1])
+            f64, f32 = torch.float64, torch.float32
+            grads = {}
+            with zoo_mode("f32"):
+                for where, net, x, y, pick, dtypes in (
+                        ("card", module, card_inputs[0], other.to(DEVICE), rows.to(DEVICE),
+                         (f64, f32)),
+                        ("cpu", cpu, inputs[0][rows], other[rows], slice(None), (f64,))):
+                    for dtype in dtypes:
+                        net.to(dtype)
+                        xd = x.detach().to(dtype).requires_grad_(True)
+                        yd = y.to(dtype)
+                        if name == "arcface":
+                            with torch.no_grad():
+                                target = net(yd)
+                            loss = gan.id_loss(net(xd), target)
+                        else:
+                            loss = net(xd, yd)
+                        (loss * xd.shape[0]).backward()
+                        grads[where, dtype] = xd.grad[pick].cpu().double()
+                        net.float()
+            truth = grads["cpu", f64]
+            err64 = float((grads["card", f64] - truth).abs().max() / truth.abs().max())
+            diff32 = grads["card", f32] - truth
+            dims = tuple(range(1, truth.ndim))
+            per_sample = (diff32.square().sum(dims) / truth.square().sum(dims)).sqrt().tolist()
+            rel32 = max(per_sample)
+            flips = ", ".join(f"{int(r)} ({e:.2g})" for r, e in zip(rows, per_sample) if e > 1e-5)
+            share32 = float((diff32.abs() > 1e-4 * truth.abs().max()).double().mean())
+            check(err64 <= ZOO_GRAD_RTOL, f"{name}: float64 input gradient, card against CPU "
+                                          f"{err64:.3g} (tolerance {ZOO_GRAD_RTOL})")
+            check(rel32 <= ZOO_GRAD32_RTOL, f"{name}: f32 input gradient, card against the "
+                                            f"CPU's float64: {rel32:.3g} of a sample's norm "
+                                            f"(tolerance {ZOO_GRAD32_RTOL})")
+            what = "d id_loss(IRSE(x), IRSE(y))/dx" if name == "arcface" else "d LPIPS(x, y)/dx"
+            print(f"[20 zoo] {name} input gradient {what} on {len(rows)} samples, card against "
+                  f"the CPU's float64: float64 max |diff| {err64:.3g} of the largest "
+                  f"(tolerance {ZOO_GRAD_RTOL}); f32 (TF32 off) {rel32:.3g} of a sample's norm "
+                  f"at most (tolerance {ZOO_GRAD32_RTOL}), {100 * share32:.4f} % of the values "
+                  f"beyond 1e-4 of the largest; samples beyond 1e-5 of their norm: "
+                  f"{flips or 'none'}")
+
+        # 4. times: items/s in each mode with TFLOP/s (FLOPs of a forward
+        # counted by FlopCounterMode) and peak memory; the idle share of a
+        # bf16 forward under torch.profiler
+        def run():
+            return zoo_forward(module, card_inputs, face)
+
+        with torch.no_grad():
+            with FlopCounterMode(display=False) as counter:
+                run()
+            flops = counter.get_total_flops() / ZOO_BATCH
+            for mode, peak in (("f32", F32_FLOPS), ("tf32", TF32_FLOPS), ("bf16", BF16_FLOPS)):
+                with zoo_mode(mode):
+                    run()
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    windows = zoo_windows_ms(run)
+                    mib = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+                ms = windows[len(windows) // 2]
+                tflops = flops * ZOO_BATCH / ms / 1e9
+                print(f"[20 zoo] {name} {mode}: {ms:.3f} ms a batch of {ZOO_BATCH} = "
+                      f"{ZOO_BATCH * 1e3 / ms:.1f} {'pairs' if name == 'lpips' else 'items'}/s "
+                      f"(median of {len(windows)} windows of >= {ZOO_WINDOW_MS:g} ms; "
+                      f"{ZOO_BATCH * 1e3 / windows[-1]:.1f}-{ZOO_BATCH * 1e3 / windows[0]:.1f}); "
+                      f"{tflops:.2f} TFLOP/s = {100e12 * tflops / peak:.1f} % of the {mode} "
+                      f"peak ({flops / 1e9:.3f} GFLOP an item); peak memory {mib:.0f} MiB "
+                      f"above what earlier phases hold ({card})")
+            with zoo_mode("bf16"):
+                wall, busy, _, top = profile_rows(run)
+            check(busy > 0 and top, f"{name}: the profile saw no device time")
+            print(f"[20 zoo] {name} bf16 forward under torch.profiler: wall {wall:.3f} ms, "
+                  f"device busy {busy:.3f} ms (idle {100 * max(0.0, 1 - busy / wall):.1f} %), "
+                  f"{sum(n for _, n, _ in top)} kernels; top: "
+                  + "; ".join(f"{k[:60]} {ms:.3f} ms" for ms, _, k in top[:3]))
+        del module, cpu
+        torch.cuda.empty_cache()
+    check(dict(kernels.launches) == before, "a kernel of this repo launched in phase 20")
+    print(f"[20 zoo] no kernel of this repo launched (the zoo runs on cuDNN/cuBLAS through "
+          f"torch); phase 20 took {time.perf_counter() - t_phase:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3940,6 +4319,9 @@ def main() -> int:
         {"name": name, "route": "cuda", "launches_a_replay": {
             kind: n[name] for kind, n in per_replay.items()},
          "launches": chunk_launches[name]} for name, n in STEP_LAUNCHES.items() if n]}))
+
+    # ---- the submodel zoo at published sizes ----
+    run_zoo_phase(kernels, card)
 
     # Every kernel of the three paths at its largest f32 shape on them;
     # `launches` is the training run's count (the demo's is checked in
