@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's sampling, training, ops, evaluation, serving,
-import, data-parallel, native-loader, 1024² and chunked-dispatch paths and
-its submodel zoo once on one CUDA card.
+import, data-parallel, native-loader, 1024² and chunked-dispatch paths, its
+submodel zoo and its face-swap pairs once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -179,7 +179,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      float64 and in f32; items/s in f32, TF32 and bf16 autocast (the median
      of five windows and their spread) with TFLOP/s and peak memory; the
      idle share of a
-     bf16 forward under torch.profiler; and no kernel of this repo launched.
+     bf16 forward under torch.profiler; and no kernel of this repo launched;
+ 21. face-swap pairs into the zoo: 16 (Xs, Xt, same_person) pairs at 256²
+     drawn by `pggan_tpu_torch.data.PairedFaceDataset` (same_prob 0.2) from
+     phase 12's folder of 48 JPEGs, its two subdirectories as two roots,
+     equal to a second draw with the same seeds (through 1 and through 8
+     threads); the pairs on the card as uint8, normalised there, into phase
+     20's ArcFace (resized to 112² by `models.zoo.interpolate2d`, then
+     `losses.gan.id_loss(IRSE(Xs), IRSE(Xt))`) and LPIPS (each pair at
+     256²) in f32 with TF32 off, against the same modules' CPU forwards of
+     the same pairs; the host's pairs/s, ArcFace items/s, LPIPS pairs/s and
+     peak memory; and no kernel of this repo launched.
 
 The second-to-last lines are a JSON object describing the kernels and the
 card's name and power limit; the last line is
@@ -359,6 +369,12 @@ ZOO_CPU_WHOLE = ("arcface", "lpips", "patchgan", "multiscale", "stargan", "laten
 ZOO_WINDOWS, ZOO_WINDOW_MS = 5, 100.0
 ZOO_CARD_RTOL, ZOO_GRAD_RTOL, ZOO_GRAD32_RTOL = 1e-4, 1e-6, 1e-2
 BFM_VERTICES, BFM_LANDMARKS, BFM_GRID_COLS = 35709, 68, 189
+# Phase 21: PAIRS pairs at PAIR_SIDE² with same_prob PAIR_SAME_PROB, the
+# sample i drawn from RandomState(PAIR_SEED + i); the host's rate over
+# PAIR_RATE_PAIRS pairs with each of PAIR_THREADS; the card against the CPU
+# within ZOO_CARD_RTOL of the largest value, as phase 20.
+PAIRS, PAIR_SIDE, PAIR_SAME_PROB, PAIR_SEED = 16, 256, 0.2, 2100
+PAIR_RATE_PAIRS, PAIR_THREADS = 64, (1, 8)
 # cuDNN and PyTorch kernels that only move data between layouts (the
 # work hires_pack removed on the TPU): matched in the profile's kernel names.
 LAYOUT_COPY_NAMES = ("copy", "transpose", "nchwToNhwc", "nhwcToNchw")
@@ -4018,7 +4034,8 @@ def zoo_mode(mode):
 
 def run_zoo_phase(kernels, card):
     """Phase 20: the submodel zoo at published sizes, batch ZOO_BATCH, on the
-    card."""
+    card. Returns {"arcface" | "lpips": (card module, CPU module)} in f32
+    for phase 21."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from pggan_tpu_torch.losses import gan
@@ -4027,6 +4044,7 @@ def run_zoo_phase(kernels, card):
     t_phase = time.perf_counter()
     before = dict(kernels.launches)
     held = torch.cuda.memory_allocated()        # earlier phases' tensors
+    kept = {}
     bases = bfm_like_bases(20)
     bases["point_buf"] = face3d.build_point_buf(bases["face_buf"], BFM_VERTICES)
     face_card = face3d.ParametricFaceModel(n_vertices=BFM_VERTICES, bases=bases, device=DEVICE)
@@ -4182,11 +4200,118 @@ def run_zoo_phase(kernels, card):
                   f"device busy {busy:.3f} ms (idle {100 * max(0.0, 1 - busy / wall):.1f} %), "
                   f"{sum(n for _, n, _ in top)} kernels; top: "
                   + "; ".join(f"{k[:60]} {ms:.3f} ms" for ms, _, k in top[:3]))
+        if name in ("arcface", "lpips"):
+            kept[name] = (module, cpu)
         del module, cpu
         torch.cuda.empty_cache()
     check(dict(kernels.launches) == before, "a kernel of this repo launched in phase 20")
     print(f"[20 zoo] no kernel of this repo launched (the zoo runs on cuDNN/cuBLAS through "
           f"torch); phase 20 took {time.perf_counter() - t_phase:.2f} s")
+    return kept
+
+
+# ---- phase 21: face-swap pairs into the zoo ---------------------------------
+
+def draw_pairs(dataset, count, threads):
+    """`count` pairs, pair i from RandomState(PAIR_SEED + i), through a pool
+    of `threads`. Returns (pairs in order, seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(i):
+        return dataset.get(i, np.random.RandomState(PAIR_SEED + i))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        pairs = list(pool.map(one, range(count)))
+    return pairs, time.perf_counter() - t0
+
+
+def run_pairs_phase(kernels, card, zoo, tmp):
+    """Phase 21: PairedFaceDataset's pairs from phase 12's folder into phase
+    20's ArcFace and LPIPS on the card, against their CPU forwards."""
+    from pggan_tpu_torch.data import PairedFaceDataset
+    from pggan_tpu_torch.losses import gan
+    from pggan_tpu_torch.models import zoo as zoo_mod
+    from pggan_tpu_torch.train.step import normalize_images
+
+    t_phase = time.perf_counter()
+    before = dict(kernels.launches)
+    images = os.path.join(tmp, "images")
+    write_image_folder(images)              # phase 12's folder, the same seed
+    roots = [os.path.join(images, f"part{r}") for r in (0, 1)]
+    dataset = PairedFaceDataset(roots, same_prob=PAIR_SAME_PROB, resolution=PAIR_SIDE)
+    check([len(ps) for ps in dataset.per_root] == [FOLDER_IMAGES // 2] * 2,
+          f"roots of {[len(ps) for ps in dataset.per_root]} images")
+    pairs, _ = draw_pairs(dataset, PAIRS, 1)
+    rates = {}
+    for threads in PAIR_THREADS:            # a second dataset, the same seeds
+        again, seconds = draw_pairs(PairedFaceDataset(roots, same_prob=PAIR_SAME_PROB,
+                                                      resolution=PAIR_SIDE),
+                                    PAIR_RATE_PAIRS, threads)
+        rates[threads] = PAIR_RATE_PAIRS / seconds
+        for i, (a, b) in enumerate(zip(pairs, again)):
+            check(a[2] == b[2] and np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]),
+                  f"pair {i} differs on a second draw with the same seed ({threads} threads)")
+    for xs, xt, same in pairs:
+        check(xs.dtype == xt.dtype == np.uint8 and xs.shape == xt.shape
+              == (PAIR_SIDE, PAIR_SIDE, 3) and same in (0, 1), "a pair's arrays or flag")
+    same = [p[2] for p in pairs]
+    xs_u8 = torch.from_numpy(np.stack([p[0] for p in pairs]))
+    xt_u8 = torch.from_numpy(np.stack([p[1] for p in pairs]))
+
+    def normalise(u8):                      # NHWC uint8 → NCHW (channels_last) [-1, 1]
+        return normalize_images(u8).permute(0, 3, 1, 2)
+
+    def identity(arc, xs, xt):
+        ea = arc(zoo_mod.interpolate2d(xs, 112 / PAIR_SIDE))
+        eb = arc(zoo_mod.interpolate2d(xt, 112 / PAIR_SIDE))
+        return ea, eb, gan.id_loss(ea, eb)
+
+    def lpips_each(net, xs, xt):
+        return torch.stack([net(xs[i:i + 1], xt[i:i + 1]) for i in range(xs.shape[0])])
+
+    (arc, arc_cpu), (lpips, lpips_cpu) = zoo["arcface"], zoo["lpips"]
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), zoo_mode("f32"):
+        xs, xt = normalise(xs_u8.to(DEVICE)), normalise(xt_u8.to(DEVICE))
+        check(xs.dtype == torch.float32 and -1 <= float(xs.min()) and float(xs.max()) <= 1,
+              "the pairs normalised on the card")
+        got = list(identity(arc, xs, xt)) + [lpips(xs, xt), lpips_each(lpips, xs, xt)]
+        torch.cuda.synchronize()
+        xs_cpu, xt_cpu = normalise(xs_u8), normalise(xt_u8)
+        want = list(identity(arc_cpu, xs_cpu, xt_cpu)) + [
+            lpips_cpu(xs_cpu, xt_cpu), lpips_each(lpips_cpu, xs_cpu, xt_cpu)]
+        labels = ("IRSE(Xs)", "IRSE(Xt)", "id_loss", "LPIPS", "LPIPS a pair")
+        errs = {k: rel_err(g, w) for k, g, w in zip(labels, got, want)}
+        arc_ms = zoo_windows_ms(lambda: identity(arc, xs, xt))
+        lpips_ms = zoo_windows_ms(lambda: lpips(xs, xt))
+    mib = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    for k, err in errs.items():
+        check(err <= ZOO_CARD_RTOL, f"phase 21 {k}: card against CPU {err:.3g} of the largest "
+                                    f"value (tolerance {ZOO_CARD_RTOL})")
+    per_pair = got[-1].cpu().tolist()
+    check(all(math.isfinite(v) for v in per_pair), "non-finite LPIPS")
+    check(dict(kernels.launches) == before, "a kernel of this repo launched in phase 21")
+    arc_med, lp_med = arc_ms[len(arc_ms) // 2], lpips_ms[len(lpips_ms) // 2]
+    print(f"[21 pairs] PairedFaceDataset({len(roots)} roots of {FOLDER_IMAGES // 2} JPEGs of "
+          f"{FOLDER_SIDE}², same_prob {PAIR_SAME_PROB}, {PAIR_SIDE}²): {PAIRS} pairs, "
+          f"same_person {sum(same)} of {PAIRS} ({''.join(map(str, same))}); equal to a second "
+          f"draw with the same seeds through {' and '.join(map(str, PAIR_THREADS))} threads")
+    print(f"[21 pairs] card f32 (TF32 off) against the CPU, max |diff| over the largest value "
+          f"(tolerance {ZOO_CARD_RTOL}): " + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+          + f"; id_loss {float(got[2]):.6f}, LPIPS {float(got[3]):.6f} (pairs "
+          f"{min(per_pair):.4f}-{max(per_pair):.4f})")
+    print(f"[21 pairs] host pairs/s: " + ", ".join(
+        f"{rates[t]:.1f} with {t} thread{'s' if t > 1 else ''}" for t in PAIR_THREADS)
+        + f" ({PAIR_RATE_PAIRS} pairs, PIL decode + resize + flip + jitter of two images a "
+          f"pair); ArcFace {2 * PAIRS * 1e3 / arc_med:.1f} items/s (resize to 112² + IRSE-50 "
+          f"on Xs and on Xt + id_loss, {arc_med:.3f} ms for {2 * PAIRS} images, windows "
+          f"{arc_ms[0]:.3f}-{arc_ms[-1]:.3f} ms); LPIPS {PAIRS * 1e3 / lp_med:.1f} pairs/s "
+          f"({lp_med:.3f} ms a batch of {PAIRS}, windows {lpips_ms[0]:.3f}-{lpips_ms[-1]:.3f} "
+          f"ms); peak memory {mib:.0f} MiB above what earlier phases hold; {card}")
+    print(f"[21 pairs] no kernel of this repo launched; phase 21 took "
+          f"{time.perf_counter() - t_phase:.2f} s")
 
 
 def main() -> int:
@@ -4320,8 +4445,11 @@ def main() -> int:
             kind: n[name] for kind, n in per_replay.items()},
          "launches": chunk_launches[name]} for name, n in STEP_LAUNCHES.items() if n]}))
 
-    # ---- the submodel zoo at published sizes ----
-    run_zoo_phase(kernels, card)
+    # ---- the submodel zoo at published sizes, and face-swap pairs into it ----
+    zoo = run_zoo_phase(kernels, card)
+    with tempfile.TemporaryDirectory(prefix="pggan_smoke_pairs_") as tmp:
+        run_pairs_phase(kernels, card, zoo, tmp)
+    del zoo
 
     # Every kernel of the three paths at its largest f32 shape on them;
     # `launches` is the training run's count (the demo's is checked in

@@ -10,8 +10,10 @@ checkpoints and exact resume, validation and FID/KID, data-parallel
 training on several cards with `--use_mGPU`, `pggan_tpu_torch.parallel`),
 the import of a reference-trained PyTorch checkpoint
 (`pggan_tpu_torch.import_ckpt`), the offline evaluation of a checkpoint
-(`pggan_tpu_torch.eval_metrics`, `pggan_tpu_torch.metrics`) and the
-StyleGAN2-ops layer
+(`pggan_tpu_torch.eval_metrics`, `pggan_tpu_torch.metrics`), the
+submodel zoo (`pggan_tpu_torch.models`), the face-swap pair datasets and
+StyleGAN2's streaming sampler (`pggan_tpu_torch.data`), the model registry
+(`register_model`, `create_model`) and the StyleGAN2-ops layer
 (`pggan_tpu_torch.ops`), with hand-written CUDA kernels for `pixel_norm`,
 `lrelu_pixel_norm` (forward and backward), `minibatch_stddev_stat` and
 `bias_lrelu_gain` (`ops/kernels.py`, `csrc/`).
@@ -24,3 +26,4 @@ from pggan_tpu_torch.models.generator import (  # noqa: F401
     params_from_jax,
     params_to_jax,
 )
+from pggan_tpu_torch.registry import MODEL_REGISTRY, create_model, register_model  # noqa: F401

@@ -17,6 +17,8 @@
     with PIL alone ran 13-25 % slower on an H100 (PERF.md).
     `use_native=False` gives JAX's PIL path;
   * `SyntheticDataset`: a fixed random image per index, no filesystem;
+  * `PairedFaceDataset` / `PairedValidDataset`: the face-swap training and
+    validation pairs, PIL only, byte for byte the JAX package's;
   * `split_dataset`: the 70/30 index split; `build_dataset`: the factory.
 
 Images stay uint8 [R, R, 3] on the host; the train step normalises them on
@@ -76,6 +78,11 @@ def _apply_color_jitter(img: Image.Image, rng: np.random.RandomState,
             hsv[..., 0] = (hsv[..., 0] + int(round(f * 255))) % 256
             img = Image.fromarray(hsv.astype(np.uint8), "HSV").convert("RGB")
     return img
+
+
+def _pil_resize(path: str, resolution: int) -> Image.Image:
+    """PIL's decode and resize (torchvision's Resize default: bilinear)."""
+    return Image.open(path).convert("RGB").resize((resolution, resolution), Image.BILINEAR)
 
 
 class ImageFolderDataset:
@@ -154,11 +161,6 @@ class ImageFolderDataset:
         """'native' or 'PIL': which path resizes and jitters."""
         return "native" if self._native is not None else "PIL"
 
-    def _pil_resized(self, path: str) -> Image.Image:
-        """PIL's decode and resize (torchvision's Resize default: bilinear)."""
-        img = Image.open(path).convert("RGB")
-        return img.resize((self.resolution, self.resolution), Image.BILINEAR)
-
     def _resize_uncached(self, path: str) -> np.ndarray:
         """Decode and resize to the training resolution, no augmentation."""
         if self._native is not None:
@@ -166,7 +168,7 @@ class ImageFolderDataset:
                 return self._native.resize(path)
             except IOError:
                 self._warn_fallback(path)
-        return np.asarray(self._pil_resized(path), dtype=np.uint8)
+        return np.asarray(_pil_resize(path, self.resolution), dtype=np.uint8)
 
     def _warn_fallback(self, path: str) -> None:
         """libjpeg and libpng reject some files PIL reads (CMYK JPEGs, some
@@ -202,7 +204,7 @@ class ImageFolderDataset:
                     return self._native.load(path, rng if self.augment else None)
                 except IOError:
                     self._warn_fallback(path)
-            img = self._pil_resized(path)
+            img = _pil_resize(path, self.resolution)
         else:
             arr = self.resized_array(index)
             if not self.augment:
@@ -233,6 +235,78 @@ class SyntheticDataset:
         base = r.randint(0, 256, (8, 8, 3), dtype=np.uint8)
         return np.asarray(Image.fromarray(base).resize(
             (self.resolution, self.resolution), Image.BILINEAR), dtype=np.uint8)
+
+
+class PairedFaceDataset:
+    """Source/target face pairs for face-swap training, the reference's
+    `FaceDatasetTrain` (`pggan_tpu/data/dataset.py:256-302`): `get` returns
+    (Xs, Xt, same_person), uint8 [R, R, 3] twice and an int. With
+    probability `same_prob` the target is the source drawn again
+    (same_person 1); otherwise a root is picked uniformly, then an image in
+    it, so roots of different sizes weigh alike (not every path alike).
+
+    Each image is decoded and resized bilinearly by PIL, then flipped and
+    colour-jittered, as the JAX package does, and never through the native
+    loader: its resize lands within one step of 255 of PIL's and its
+    jitter stays in float, while these pairs equal the JAX package's byte
+    for byte. A sample draws from `rng` in this order: the source's flip
+    and jitter, the `same_prob` test, the root and the image, the target's
+    flip and jitter. Host data: a caller puts the pairs on its device."""
+
+    def __init__(self, dataset_root_list: Sequence[str], *,
+                 is_master: bool = False, same_prob: float = 0.2,
+                 resolution: int = 256):
+        self.per_root = [ps for ps in (list_image_paths([r]) for r in dataset_root_list) if ps]
+        self.paths = [p for ps in self.per_root for p in ps]
+        if not self.paths:
+            raise FileNotFoundError(f"no images found under {list(dataset_root_list)!r}")
+        self.same_prob = same_prob
+        self.resolution = resolution
+        if is_master:
+            print(f"Dataset of {len(self)} images constructed for the training.")
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def _load(self, path: str, rng: np.random.RandomState) -> np.ndarray:
+        img = _pil_resize(path, self.resolution)
+        if rng.rand() < 0.5:
+            img = img.transpose(Image.FLIP_LEFT_RIGHT)
+        return np.asarray(_apply_color_jitter(img, rng), dtype=np.uint8)
+
+    def get(self, index: int, rng: np.random.RandomState):
+        src_path = self.paths[index % len(self.paths)]
+        xs = self._load(src_path, rng)
+        if rng.rand() > self.same_prob:
+            root = self.per_root[rng.randint(len(self.per_root))]
+            return xs, self._load(root[rng.randint(len(root))], rng), 0
+        return xs, self._load(src_path, rng), 1
+
+
+class PairedValidDataset:
+    """Fixed source/target validation pairs, the reference's
+    `FaceDatasetValid` (`pggan_tpu/data/dataset.py:305-331`): the sorted
+    images of `{valid_data_dir}/source` and of `.../target`, as many pairs
+    as the shorter list holds, resized by PIL only (no draw)."""
+
+    def __init__(self, valid_data_dir: str, *, is_master: bool = False,
+                 resolution: int = 256):
+        self.source_paths = sorted(list_image_paths([os.path.join(valid_data_dir, "source")]))
+        self.target_paths = sorted(list_image_paths([os.path.join(valid_data_dir, "target")]))
+        self.n = min(len(self.source_paths), len(self.target_paths))
+        self.resolution = resolution
+        if is_master:
+            print(f"Dataset of {self.n} images constructed for the validation.")
+
+    def __len__(self) -> int:
+        return self.n
+
+    def _load(self, path: str) -> np.ndarray:
+        return np.asarray(_pil_resize(path, self.resolution), dtype=np.uint8)
+
+    def get(self, index: int, rng=None):
+        return (self._load(self.source_paths[index]),
+                self._load(self.target_paths[index]))
 
 
 def split_dataset(n: int, train_frac: float = 0.7, seed: int = 42

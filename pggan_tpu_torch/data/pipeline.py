@@ -19,6 +19,9 @@
 
 The index and seed draws are the JAX package's, number for number, so both
 packages feed a step the same images.
+
+`InfiniteSampler` is StyleGAN2's streaming index sampler, which
+`DataPipeline` does not use (as in the JAX package).
 """
 
 from __future__ import annotations
@@ -32,6 +35,51 @@ import numpy as np
 import torch
 
 _JOIN_S = 10.0
+
+
+class InfiniteSampler:
+    """An endless stream of dataset indices, StyleGAN2's InfiniteSampler
+    (`pggan_tpu/data/pipeline.py:30-76`), numpy only. With `shuffle`, the
+    order starts as a `RandomState(seed)` permutation, and after each
+    position is visited it is swapped with one of the `rint(size ·
+    window_size)` positions up to it (none when that window is under 2), so
+    the order keeps mixing without a full reshuffle. Rank `rank` of
+    `num_replicas` yields the positions whose count is `rank` modulo
+    `num_replicas`, so the ranks' streams partition each pass. The index
+    stream is the JAX package's, number for number."""
+
+    def __init__(self, dataset_size: int, *, rank: int = 0, num_replicas: int = 1,
+                 shuffle: bool = True, seed: int = 0, window_size: float = 0.5):
+        if dataset_size <= 0 or num_replicas <= 0:
+            raise ValueError(f"dataset_size {dataset_size} and num_replicas {num_replicas} "
+                             f"must be positive")
+        if not 0 <= rank < num_replicas or not 0 <= window_size <= 1:
+            raise ValueError(f"rank {rank} outside [0, {num_replicas}) or window_size "
+                             f"{window_size} outside [0, 1]")
+        self.dataset_size = int(dataset_size)
+        self.rank = rank
+        self.num_replicas = num_replicas
+        self.shuffle = shuffle
+        self.seed = seed
+        self.window_size = window_size
+
+    def __iter__(self) -> Iterator[int]:
+        order = np.arange(self.dataset_size)
+        rnd = None
+        window = 0
+        if self.shuffle:
+            rnd = np.random.RandomState(self.seed)
+            rnd.shuffle(order)
+            window = int(np.rint(order.size * self.window_size))
+        idx = 0
+        while True:
+            i = idx % order.size
+            if idx % self.num_replicas == self.rank:
+                yield int(order[i])
+            if window >= 2:
+                j = (i - rnd.randint(window)) % order.size
+                order[i], order[j] = order[j], order[i]
+            idx += 1
 
 
 class DataPipeline:
