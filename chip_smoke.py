@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's sampling, training, ops, evaluation, serving,
 import, data-parallel, native-loader, 1024² and chunked-dispatch paths, its
-submodel zoo and its face-swap pairs once on one CUDA card.
+submodel zoo, its face-swap pairs and StyleGAN2's sampling path once on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -189,7 +190,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      `losses.gan.id_loss(IRSE(Xs), IRSE(Xt))`) and LPIPS (each pair at
      256²) in f32 with TF32 off, against the same modules' CPU forwards of
      the same pairs; the host's pairs/s, ArcFace items/s, LPIPS pairs/s and
-     peak memory; and no kernel of this repo launched.
+     peak memory; and no kernel of this repo launched;
+ 22. StyleGAN2 config-f (`models/stylegan2.py`): `ops.bias_act(lrelu)`
+     through its wrapper at the mapping's [16, 512] and the conv epilogues
+     at 4², 64² (f32) and 128², 1024² (bf16), without a clamp and with
+     ±256, against `bias_lrelu_gain_plain` bit for bit, one launch a call;
+     then one 1024² forward at batch 16 with the counts set to 0 just
+     before: 25 bias_lrelu_gain launches, 26 modulated convs, a finite
+     image, the plain version's forward beside it, and the peak memory.
 
 The second-to-last lines are a JSON object describing the kernels and the
 card's name and power limit; the last line is
@@ -446,6 +454,13 @@ SMALL_NUMEL, SMALL_ITERS = BATCH * 4 * 4 * 512, 200
 # the tensor cores, dense TF32 and bf16 FLOP/s on them.
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
 TF32_FLOPS, BF16_FLOPS = 495e12, 989e12
+# Phase 22: StyleGAN2 config-f's epilogue shapes (NHWC): the mapping's, the
+# conv outputs at 4² and 64² (float32 blocks) and 128² and 1024² (bf16
+# blocks), the clamp, the inputs' scale (so that a share of each output
+# clamps) and the seed of its weights and inputs.
+SG2_EPILOGUES = [(BATCH, 512), (BATCH, 4, 4, 512), (BATCH, 64, 64, 512),
+                 (BATCH, 128, 128, 512), (BATCH, 1024, 1024, 64)]
+SG2_CLAMP, SG2_SCALE, SG2_SEED = 256.0, 300.0, 22
 # Untimed replays before `device_ms` times its graph (see there).
 DEVICE_WARM_S = 0.1
 
@@ -4314,6 +4329,108 @@ def run_pairs_phase(kernels, card, zoo, tmp):
           f"{time.perf_counter() - t_phase:.2f} s")
 
 
+
+# ---- phase 22: StyleGAN2 config-f's clamped epilogues and one forward -------
+
+def check_sg2_epilogues(kernels, ops, gen):
+    """Phase 22a: `ops.bias_act(lrelu)` through its wrapper at StyleGAN2
+    config-f's epilogue shapes, without a clamp and with SG2_CLAMP, f32 and
+    bf16, a bias in x's dtype (as the synthesis passes it) and an f32 one
+    (as the mapping does), against `bias_lrelu_gain_plain` on the same
+    inputs, bit for bit: both compute one f32 sum, compare, two products
+    and the clamp's two compares, then round once. One launch a call.
+    Returns the largest |diff|."""
+    worst, calls, clamped = 0.0, 0, []
+    with torch.no_grad():
+        for shape, dt, clamp in itertools.product(SG2_EPILOGUES, TOL, (None, SG2_CLAMP)):
+            x = nhwc(shape, dt, gen) * SG2_SCALE
+            b32 = torch.randn((shape[-1],), generator=gen, device=DEVICE)
+            for b in [b32, b32.to(dt)] if dt != torch.float32 else [b32]:
+                kernels.reset_launch_counts()
+                got = ops.bias_act(x, b, act="lrelu", clamp=clamp)
+                launches = kernels.launches["bias_lrelu_gain"]
+                want = kernels.bias_lrelu_gain_plain(x, b, 0.2, math.sqrt(2.0), 1, clamp)
+                torch.cuda.synchronize()
+                check(launches == 1, f"bias_act {shape} {dt}: {launches} launches")
+                check(got.dtype == dt and got.stride() == x.stride(), f"bias_act {shape}: layout")
+                torch.testing.assert_close(got, want, rtol=0, atol=0, msg=lambda m: (
+                    f"bias_act lrelu clamp {clamp} {shape} {dt} b {b.dtype}: {m}"))
+                worst = max(worst, float((got.float() - want.float()).abs().max()))
+                if clamp is not None:
+                    top = float(got.float().abs().max())
+                    check(top == clamp, f"bias_act {shape} {dt}: largest |y| {top}, clamp {clamp}")
+                    clamped.append(100.0 * float((got.float().abs() == clamp).float().mean()))
+                calls += 1
+                del got, want
+            del x
+    print(f"[22 sg2] bias_act lrelu (gain √2) through the wrapper, {calls} calls at "
+          f"{[list(s) for s in SG2_EPILOGUES]} (NHWC), f32 and bf16 x, x-dtype and f32 "
+          f"biases, no clamp and clamp {SG2_CLAMP}, inputs N(0, {SG2_SCALE}²): the kernel "
+          f"equals bias_lrelu_gain_plain bit for bit (max |diff| {worst:.3g}); one launch a "
+          f"call; {min(clamped):.1f}-{max(clamped):.1f} % of each clamped output at ±"
+          f"{SG2_CLAMP}")
+    return worst
+
+
+def run_sg2_forward(kernels, card, gen):
+    """Phase 22b: one StyleGAN2 config-f forward at 1024² (bf16 blocks from
+    128², float32 below), batch 16, every count set to 0 just before: 25
+    bias_lrelu_gain launches (8 mapping, 17 synthesis; the 9 toRGBs are
+    linear) and 26 modulated convs; the image finite; the same forward with
+    the plain version of the kernel. Returns the launches."""
+    from pggan_tpu_torch.models.stylegan2 import StyleGAN2Generator
+    from pggan_tpu_torch.ops import modulated
+
+    t_phase = time.perf_counter()
+    G = StyleGAN2Generator(seed=SG2_SEED).to(DEVICE).eval().requires_grad_(False)
+    z = torch.randn((BATCH, G.z_dim), generator=gen, device=DEVICE)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        G(z)                                  # cuDNN picks its algorithms
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        modulated.reset_counts()
+        t0 = time.perf_counter()
+        img = G(z)
+        torch.cuda.synchronize()
+        forward_ms = 1e3 * (time.perf_counter() - t0)
+        launches, modconvs = dict(kernels.launches), modulated.counts["modconv"]
+        with plain_bias_act(kernels):
+            plain = G(z)
+    gib = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    want = dict.fromkeys(launches, 0)
+    want["bias_lrelu_gain"] = 25
+    check(launches == want, f"StyleGAN2 forward launches {launches}, expected {want}")
+    check(modconvs == 26, f"{modconvs} modulated convs a forward, expected 26")
+    check(img.shape == (BATCH, 1024, 1024, 3) and img.dtype == torch.float32,
+          f"image {tuple(img.shape)} {img.dtype}")
+    check(bool(torch.isfinite(img).all()), "the StyleGAN2 image is not finite")
+    scale, err = float(plain.abs().max()), float((img - plain).abs().max())
+    # The epilogues agree bit for bit (22a); only cuDNN's choice of
+    # algorithm between two forwards could move the rest.
+    check(err <= 1e-2 * scale, f"kernel path vs plain path |diff| {err:.3g} of {scale:.3g}")
+    print(f"[22 sg2] StyleGAN2 config-f forward [{BATCH}, 512] → {list(img.shape)} (bf16 "
+          f"from 128², f32 with TF32 off below): launches {launches}, {modconvs} modulated "
+          f"convs; image std {float(img.std()):.3f}, max |x| {scale:.3f}; kernel path vs "
+          f"plain path max |diff| {err:.3g}; one eager forward {forward_ms:.1f} ms; peak "
+          f"memory {gib:.2f} GiB above what earlier phases hold; {card}")
+    del G, img, plain
+    torch.cuda.empty_cache()
+    print(f"[22 sg2] phase 22b took {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+def run_sg2_phase(kernels, card):
+    """Phase 22: StyleGAN2's path (22a, 22b). Returns (max |diff|, launches)."""
+    from pggan_tpu_torch import ops
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SG2_SEED)
+    worst = check_sg2_epilogues(kernels, ops, gen)
+    torch.cuda.empty_cache()
+    return worst, run_sg2_forward(kernels, card, gen)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4397,7 +4514,7 @@ def main() -> int:
 
     max_err["bias_lrelu_gain"] = check_bias_act_kernel(kernels, path_shapes, gen)
     check_bias_act_rule(kernels, gen)
-    ops_launches = run_ops_path(kernels, ops, gen)
+    run_ops_path(kernels, ops, gen)
     check_ops_on_card(ops)
     print(f"[11 times] card: {card}")
     ops_times = time_ops(kernels, ops, gen, card)
@@ -4450,10 +4567,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="pggan_smoke_pairs_") as tmp:
         run_pairs_phase(kernels, card, zoo, tmp)
     del zoo
+    torch.cuda.empty_cache()
 
-    # Every kernel of the three paths at its largest f32 shape on them;
+    # ---- StyleGAN2 config-f: its clamped epilogues and one forward ----
+    _, sg2_launches = run_sg2_phase(kernels, card)
+
+    # Every kernel of the four paths at its largest f32 shape on them;
     # `launches` is the training run's count (the demo's is checked in
-    # phase 4), and bias_lrelu_gain's the ops path's (phase 11). `ms` is the
+    # phase 4), and bias_lrelu_gain's a StyleGAN2 forward's (phase 22). `ms` is the
     # call time, `device_ms` the device time in a CUDA graph. Bounds: each
     # input read once and each output written once at 3.35 TB/s, against a
     # few f32 operations per element at 67 TFLOP/s.
@@ -4475,7 +4596,7 @@ def main() -> int:
          ops_times[("bias_lrelu_gain", torch.float32)], 2 * n_big * 4 + big[-1] * 4,
          4 * n_big, None),
     ]
-    path_launches = dict(train_launches, bias_lrelu_gain=ops_launches["bias_lrelu_gain"])
+    path_launches = dict(train_launches, bias_lrelu_gain=sg2_launches["bias_lrelu_gain"])
     report = []
     for (name, source, line, shape, (kernel_ms, kernel_dev, plain_ms), nbytes, flops,
          lib_ms) in entries:

@@ -1,4 +1,5 @@
-"""Repo-wide pytest hooks: the `slow` marker, and the tests that carry it."""
+"""Repo-wide pytest hooks: the `slow` and `card` markers, and the tests that
+carry `slow`."""
 
 from pathlib import Path
 
@@ -15,6 +16,8 @@ SLOW = (
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: left out of the everyday run (-m 'not slow')")
+    config.addinivalue_line("markers", "card: needs a CUDA card; its fixture skips it "
+                            "without one (on the card: pytest --noconftest -m card FILE)")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -122,6 +122,31 @@ _DEFAULTS: Dict[str, Any] = {
 }
 
 
+# The keys of a StyleGAN2 generator (`model_id: stylegan2`,
+# `models/stylegan2.py`), at config-f's values (Karras et al. 2020,
+# NVIDIA's stylegan2 `run_training.py` config-f and stylegan2-ada-pytorch's
+# `num_fp16_res` 4, `conv_clamp` 256). The JAX package has no such model, so
+# they stay out of `_DEFAULTS`; `stylegan2_args` lays a checkpoint's args
+# over them.
+STYLEGAN2_DEFAULTS: Dict[str, Any] = {
+    "z_dim": 512,
+    "w_dim": 512,
+    "mapping_layers": 8,
+    "mapping_lr_multiplier": 0.01,
+    "resolution": 1024,
+    "fmap_base": 32768,               # channels min(2·fmap_base / res, fmap_max)
+    "fmap_max": 512,
+    "num_fp16_res": 4,                # highest resolutions in bfloat16
+    "conv_clamp": 256,
+    "output_dim": 3,
+}
+
+
+def stylegan2_args(values: Dict[str, Any]) -> Dict[str, Any]:
+    """STYLEGAN2_DEFAULTS with the keys of `values` that it names laid over."""
+    return {key: values.get(key, default) for key, default in STYLEGAN2_DEFAULTS.items()}
+
+
 def default_depths(max_scale: int) -> list:
     """The reference's depth law (configs.yaml's depths generalised;
     `pggan_tpu/config.py:180-189`): 512 through scale 3, then halved each

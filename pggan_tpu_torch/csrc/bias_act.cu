@@ -1,16 +1,20 @@
-// Bias + leaky ReLU + gain for Hopper (sm_90a), CUDA C++.
+// Bias + leaky ReLU + gain (+ symmetric clamp) for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the Pallas TPU kernel
 //   bias_lrelu_gain  <- pggan_tpu/ops/pallas_kernels.py `_bias_lrelu_kernel`
 //                       (reached through `bias_lrelu_gain` / `_bias_lrelu_core`)
-// which serves `bias_act(act='lrelu', clamp=None)` and `filtered_lrelu`.
+// which serves `bias_act(act='lrelu')` and `filtered_lrelu`; the port's kernel
+// also takes the clamp, which the Pallas kernel leaves to XLA, so StyleGAN2's
+// clamped conv epilogues (`clamp(lrelu(x + b)·gain, ±256)`) are one launch.
 //
 // It reads a row-major [rows, cols] view of channel-last memory (a
 // channels_last NCHW tensor, a contiguous [B, C] tensor, or any tensor whose
 // channel axis is innermost) and writes, per element,
 //   y = leaky_relu(x + b[c], slope) * gain,   c = the element's channel,
-// in f32, rounded once to x's type. x and y are f32 or bf16; b is f32 or x's
-// type, or null for a zero bias.
+//   y = min(max(y, -clamp), clamp)            when clamp >= 0,
+// in f32, rounded once to x's type. The clamp is two compares, so a NaN
+// passes through it as through torch.clamp (fminf/fmaxf would drop it).
+// x and y are f32 or bf16; b is f32 or x's type, or null for a zero bias.
 //
 // What bounds it on an H100: bytes. Three operations per element against
 // one read of x and one write of y; the C-wide bias stays in L1/L2. The
@@ -54,7 +58,7 @@ template <typename T, typename B>
 __global__ void __launch_bounds__(kThreadsPerBlock)
 bias_lrelu_gain_kernel(const T* __restrict__ x, const B* __restrict__ b,
                        T* __restrict__ y, int64_t n, int cols, float slope,
-                       float gain) {
+                       float gain, float clamp) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -63,8 +67,9 @@ bias_lrelu_gain_kernel(const T* __restrict__ x, const B* __restrict__ b,
   for (; i < n; i += stride) {
     float z = to_f32(x[i]);
     if (b != nullptr) z += to_f32(b[c]);
-    const float a = z >= 0.f ? z : z * slope;
-    y[i] = from_f32<T>(a * gain);
+    float a = (z >= 0.f ? z : z * slope) * gain;
+    if (clamp >= 0.f) a = a < -clamp ? -clamp : (a > clamp ? clamp : a);
+    y[i] = from_f32<T>(a);
     c += step;
     if (c >= cols) c -= cols;
   }
@@ -72,7 +77,7 @@ bias_lrelu_gain_kernel(const T* __restrict__ x, const B* __restrict__ b,
 
 template <typename T, typename B>
 int launch(const void* x, const void* b, void* y, int64_t n, int cols, float slope,
-           float gain, cudaStream_t stream) {
+           float gain, float clamp, cudaStream_t stream) {
   int device = 0;
   int sms = 0;
   if (const cudaError_t err = cudaGetDevice(&device)) return static_cast<int>(err);
@@ -85,7 +90,7 @@ int launch(const void* x, const void* b, void* y, int64_t n, int cols, float slo
   const unsigned int blocks = static_cast<unsigned int>(needed < cap ? needed : cap);
   bias_lrelu_gain_kernel<T, B><<<blocks, kThreadsPerBlock, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const B*>(b), static_cast<T*>(y), n, cols,
-      slope, gain);
+      slope, gain, clamp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -94,10 +99,10 @@ int launch(const void* x, const void* b, void* y, int64_t n, int cols, float slo
 extern "C" {
 
 // x_dtype: 0 = float32, 1 = bfloat16; b_dtype: the same codes for b (ignored
-// when b is null). n = rows * cols elements.
+// when b is null). n = rows * cols elements. clamp < 0: no clamp.
 int pggan_bias_lrelu_gain(const void* x, const void* b, void* y, int64_t n, int cols,
                           int x_dtype, int b_dtype, float slope, float gain,
-                          void* stream) {
+                          float clamp, void* stream) {
   if (n < 0 || cols <= 0 || (b != nullptr && b_dtype != 0 && b_dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -106,11 +111,13 @@ int pggan_bias_lrelu_gain(const void* x, const void* b, void* y, int64_t n, int 
   const bool b_f32 = b == nullptr || b_dtype == 0;
   if (x_dtype == 0) {
     if (!b_f32) return static_cast<int>(cudaErrorInvalidValue);
-    return launch<float, float>(x, b, y, n, cols, slope, gain, s);
+    return launch<float, float>(x, b, y, n, cols, slope, gain, clamp, s);
   }
   if (x_dtype == 1) {
-    return b_f32 ? launch<__nv_bfloat16, float>(x, b, y, n, cols, slope, gain, s)
-                 : launch<__nv_bfloat16, __nv_bfloat16>(x, b, y, n, cols, slope, gain, s);
+    return b_f32
+               ? launch<__nv_bfloat16, float>(x, b, y, n, cols, slope, gain, clamp, s)
+               : launch<__nv_bfloat16, __nv_bfloat16>(x, b, y, n, cols, slope, gain,
+                                                      clamp, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,6 +3,9 @@
 Rebuilds G at the checkpoint's scale, loads a checkpoint in the JAX
 package's npz format with a strict key-set check, draws latents, runs the
 forward pass, denormalises ×0.5+0.5 → [0, 255] and writes result_{i}.jpg.
+A checkpoint whose args name `model_id: stylegan2` is sampled through the
+same loop from StyleGAN2's generator (`models/stylegan2.py`), built from the
+args' StyleGAN2 keys (`config.STYLEGAN2_DEFAULTS`).
 
     python -m pggan_tpu_torch.demo --ckpt_id my_run [--ckpt_step 30000]
         [--n_samples 16] [--batch_size 16] [--seed 0] [--output_dir DIR]
@@ -24,7 +27,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from pggan_tpu_torch.config import Config
+from pggan_tpu_torch.config import Config, stylegan2_args
+from pggan_tpu_torch.models import stylegan2
 from pggan_tpu_torch.models.generator import Generator, load_params_from_jax
 from pggan_tpu_torch.utils import checkpoint as ckpt_lib
 from pggan_tpu_torch.utils.image import denorm_to_uint8, write_jpeg
@@ -32,10 +36,14 @@ from pggan_tpu_torch.utils.image import denorm_to_uint8, write_jpeg
 
 def load_generator(save_root: str, ckpt_id: str, ckpt_step: Optional[int] = None,
                    *, ema: bool = False, device="cuda"
-                   ) -> Tuple[Generator, Config, int, float]:
+                   ) -> Tuple[torch.nn.Module, Config, int, float]:
     """Rebuild G at the checkpointed scale from the checkpoint's own config
     and load its weights strictly (`demo.py:23-50`). `ema=True` loads the
-    smoothed weights (`Gema`). Returns (G in eval mode, args, scale, alpha)."""
+    smoothed weights (`Gema`). Returns (G in eval mode, args, scale, alpha).
+
+    For `model_id: stylegan2`, G is StyleGAN2's generator, the scale that of
+    its resolution (log2(resolution) − 2) and ψ = 1 (no truncation) stands
+    in alpha's place: either G samples as `G(z, alpha)`."""
     name = "Gema" if ema else "G"
     result = ckpt_lib.load_checkpoint(save_root, ckpt_id, name, ckpt_step)
     if result is None:
@@ -44,6 +52,18 @@ def load_generator(save_root: str, ckpt_id: str, ckpt_step: Optional[int] = None
             f"under {save_root!r}")
     arrays, _opt, meta = result
     args = Config(meta.get("args", {}))
+    if args.model_id == "stylegan2":
+        a = stylegan2_args(args)
+        generator = stylegan2.StyleGAN2Generator(
+            z_dim=int(a["z_dim"]), w_dim=int(a["w_dim"]),
+            mapping_layers=int(a["mapping_layers"]),
+            mapping_lr_multiplier=float(a["mapping_lr_multiplier"]),
+            resolution=int(a["resolution"]), fmap_base=int(a["fmap_base"]),
+            fmap_max=int(a["fmap_max"]), num_fp16_res=int(a["num_fp16_res"]),
+            conv_clamp=a["conv_clamp"], img_channels=int(a["output_dim"]))
+        stylegan2.load_params(generator, arrays)
+        scale = int(a["resolution"]).bit_length() - 3
+        return generator.to(device).eval(), args, scale, 1.0
     scale = int(meta["schedule"]["scale_index"])
     alpha = float(meta["schedule"]["alpha"])
     generator = Generator(
@@ -82,18 +102,21 @@ def main(argv=None) -> int:
     os.makedirs(out_dir, exist_ok=True)
 
     if ns.export:
+        if args.model_id == "stylegan2":
+            raise SystemExit("--export writes the PGGAN generator's artifact only")
         from pggan_tpu_torch.export import export_generator
         # G carries the checkpoint's slope, pixel norm and last activation
         export_generator(generator, latent_dim=int(args.latent_dim), alpha=alpha,
                          path=ns.export, device=device)
         print(f"wrote serving artifact (scale {scale}, alpha {alpha}) to {ns.export}")
 
+    latent_dim = generator.z_dim if args.model_id == "stylegan2" else int(args.latent_dim)
     rng = torch.Generator(device=device).manual_seed(ns.seed)
     written = 0
     with torch.no_grad():
         while written < ns.n_samples:
             n = min(ns.batch_size, ns.n_samples - written)
-            z = torch.randn((n, int(args.latent_dim)), generator=rng, device=device)
+            z = torch.randn((n, latent_dim), generator=rng, device=device)
             images = generator(z, alpha)
             if not bool(torch.isfinite(images).all()):
                 raise FloatingPointError(

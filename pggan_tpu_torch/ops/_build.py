@@ -56,10 +56,11 @@ _SIGNATURES = {
     # x, f, dtype -> values a load (4 or 8: vector branch; 1: generic branch)
     "pggan_minibatch_stddev_plan": (_c_int, [_c_void_p, _c_int64, _c_int,
                                              ctypes.POINTER(_c_int)]),
-    # x, b (or null), y, n, cols, x dtype, b dtype, slope, gain, stream
+    # x, b (or null), y, n, cols, x dtype, b dtype, slope, gain, clamp (< 0:
+    # none), stream
     "pggan_bias_lrelu_gain": (_c_int, [_c_void_p, _c_void_p, _c_void_p, _c_int64,
                                        _c_int, _c_int, _c_int, _c_float, _c_float,
-                                       _c_void_p]),
+                                       _c_float, _c_void_p]),
     "pggan_cuda_error_string": (ctypes.c_char_p, [_c_int]),
 }
 

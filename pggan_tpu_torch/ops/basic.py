@@ -118,10 +118,11 @@ def bias_act(x: torch.Tensor, b: Optional[torch.Tensor] = None, dim: int = 1,
     (`pggan_tpu/ops/basic.py:191-223`). `alpha` is the activation's shape
     parameter (the lrelu slope); the defaults are the activation's.
 
-    Leaky ReLU without a clamp on a tensor of 2 or more dims is
+    Leaky ReLU on a tensor of 2 or more dims, with or without a clamp, is
     `kernels.bias_lrelu_gain` (the CUDA kernel on a CUDA tensor, which
-    needs `dim` innermost in memory; f32 math). Everything else is torch
-    ops in x's dtype, as the JAX package's xla path computes it."""
+    needs `dim` innermost in memory; f32 math, one rounding). Everything
+    else is torch ops in x's dtype, as the JAX package's xla path computes
+    it."""
     if act not in _ACTIVATIONS:
         raise ValueError(f"unknown activation {act!r}")
     if clamp is not None and clamp < 0:
@@ -129,8 +130,8 @@ def bias_act(x: torch.Tensor, b: Optional[torch.Tensor] = None, dim: int = 1,
     fn, def_alpha, def_gain = _ACTIVATIONS[act]
     alpha = def_alpha if alpha is None else float(alpha)
     gain = def_gain if gain is None else float(gain)
-    if act == "lrelu" and clamp is None and x.ndim >= 2:
-        return kernels.bias_lrelu_gain(x, b, alpha, gain, dim)
+    if act == "lrelu" and x.ndim >= 2:
+        return kernels.bias_lrelu_gain(x, b, alpha, gain, dim, clamp)
     if b is not None:
         x = x + kernels.along(b, x.ndim, dim).to(x.dtype)
     x = fn(x, alpha)

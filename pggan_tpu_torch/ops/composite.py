@@ -3,9 +3,9 @@
 
 4-D activations are logical NCHW tensors in `torch.channels_last` memory;
 convolution weights are HWIO, as in the JAX package. `filtered_lrelu`'s
-activation is `bias_act`'s leaky ReLU, so on a CUDA tensor without a clamp it
-is one launch of the `bias_lrelu_gain` kernel; the rest is upfirdn2d, cuDNN and
-torch ops. Everything is differentiable to any order.
+activation is `bias_act`'s leaky ReLU, so on a CUDA tensor, with or without a
+clamp, it is one launch of the `bias_lrelu_gain` kernel; the rest is
+upfirdn2d, cuDNN and torch ops. Everything is differentiable to any order.
 """
 
 from __future__ import annotations

@@ -27,9 +27,9 @@ backward, which runs through D's minibatch-stddev, composes.
 differentiated once), so its backward is the backward kernel, marked
 `once_differentiable`. Where autograd will not record the call (x does not
 require grad, or grad is disabled, as when sampling), `pixel_norm`,
-`lrelu_pixel_norm` and `minibatch_stddev_stat` call their forward without
-the `autograd.Function`, whose `apply` costs more host time than a small
-launch.
+`lrelu_pixel_norm`, `minibatch_stddev_stat` and `bias_lrelu_gain` call their
+forward without the `autograd.Function`, whose `apply` costs more host time
+than a small launch.
 
 Layout: the normalised axis is the channel axis. A 2-D input is a contiguous
 [B, C] tensor; a 4-D input is a logical NCHW tensor in `torch.channels_last`
@@ -145,16 +145,26 @@ def along(b: torch.Tensor, ndim: int, dim: int) -> torch.Tensor:
     return b.reshape(shape)
 
 
-def bias_lrelu_gain_plain(x: torch.Tensor, b: Optional[torch.Tensor] = None,
-                          slope: float = 0.2, gain: float = SQRT2,
-                          dim: int = 1) -> torch.Tensor:
-    """leaky_relu(x + b, slope) · gain with b broadcast along `dim`; math in
-    f32, one rounding to x's dtype (`_bias_lrelu_kernel`,
-    `pallas_kernels.py:97-100`). b None is a zero bias."""
+def _bias_lrelu_gain_f32(x: torch.Tensor, b: Optional[torch.Tensor], slope: float,
+                         gain: float, dim: int) -> torch.Tensor:
+    """leaky_relu(x + b, slope) · gain in f32, before any clamp."""
     z = x.float()
     if b is not None:
         z = z + along(b.float(), x.ndim, dim)
-    return (torch.where(z >= 0, z, z * slope) * gain).to(x.dtype)
+    return torch.where(z >= 0, z, z * slope) * gain
+
+
+def bias_lrelu_gain_plain(x: torch.Tensor, b: Optional[torch.Tensor] = None,
+                          slope: float = 0.2, gain: float = SQRT2,
+                          dim: int = 1, clamp: Optional[float] = None) -> torch.Tensor:
+    """leaky_relu(x + b, slope) · gain with b broadcast along `dim`, then
+    clamped to [-clamp, clamp] when a clamp is given; math in f32, one
+    rounding to x's dtype (`_bias_lrelu_kernel`, `pallas_kernels.py:97-100`,
+    with `bias_act`'s clamp). b None is a zero bias."""
+    y = _bias_lrelu_gain_f32(x, b, slope, gain, dim)
+    if clamp is not None:
+        y = y.clamp(-clamp, clamp)
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -339,9 +349,9 @@ def _minibatch_stddev_stat_fwd(x: torch.Tensor, sg: int, eps: float) -> torch.Te
 
 
 def _bias_lrelu_gain_fwd(x: torch.Tensor, b: Optional[torch.Tensor], slope: float,
-                         gain: float, dim: int) -> torch.Tensor:
+                         gain: float, dim: int, clamp: Optional[float]) -> torch.Tensor:
     if x.is_cpu:
-        return bias_lrelu_gain_plain(x, b, slope, gain, dim)
+        return bias_lrelu_gain_plain(x, b, slope, gain, dim, clamp)
     n, cols = kernel_channels(x, dim)
     if b is not None and (b.shape != (cols,) or b.dtype not in (torch.float32, x.dtype)
                           or b.device != x.device or not b.is_contiguous()):
@@ -353,7 +363,7 @@ def _bias_lrelu_gain_fwd(x: torch.Tensor, b: Optional[torch.Tensor], slope: floa
     _call("bias_lrelu_gain", "pggan_bias_lrelu_gain", x, x.data_ptr(),
           None if b is None else b.data_ptr(), y.data_ptr(), n, cols,
           _DTYPE_CODES[x.dtype], 0 if b is None else _DTYPE_CODES[b.dtype],
-          float(slope), float(gain))
+          float(slope), float(gain), -1.0 if clamp is None else float(clamp))
     return y
 
 
@@ -425,25 +435,31 @@ class _MinibatchStddevStat(torch.autograd.Function):
 
 class _BiasLreluGain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, b, slope, gain, dim):
+    def forward(ctx, x, b, slope, gain, dim, clamp):
         ctx.save_for_backward(x, b)
-        ctx.slope, ctx.gain, ctx.dim = slope, gain, dim
-        return _bias_lrelu_gain_fwd(x, b, slope, gain, dim)
+        ctx.slope, ctx.gain, ctx.dim, ctx.clamp = slope, gain, dim, clamp
+        return _bias_lrelu_gain_fwd(x, b, slope, gain, dim, clamp)
 
     @staticmethod
     def backward(ctx, g):
         # The transpose of `_bias_lrelu_jvp` (`pallas_kernels.py:133-141`) in
         # differentiable torch ops: the mask is formed in x's dtype, as the
-        # JVP forms it, and dx = where(z >= 0, g·gain, g·gain·slope).
+        # JVP forms it, and dx = where(z >= 0, g·gain, g·gain·slope). Where
+        # the clamp bit (the unclamped f32 value, as the kernel forms it,
+        # lies outside [-clamp, clamp]) dx is 0, as torch.clamp's derivative.
         x, b = ctx.saved_tensors
         z = x if b is None else x + along(b, x.ndim, ctx.dim).to(x.dtype)
         gg = g * ctx.gain
         dx = torch.where(z >= 0, gg, gg * ctx.slope)
+        if ctx.clamp is not None:
+            y = _bias_lrelu_gain_f32(x.detach(), None if b is None else b.detach(),
+                                     ctx.slope, ctx.gain, ctx.dim)
+            dx = torch.where(y.abs() <= ctx.clamp, dx, torch.zeros_like(dx))
         db = None
         if b is not None:
             axes = [d for d in range(x.ndim) if d != ctx.dim % x.ndim]
             db = dx.sum(dim=axes, dtype=b.dtype)
-        return dx.to(x.dtype), db, None, None, None
+        return dx.to(x.dtype), db, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -509,8 +525,12 @@ def minibatch_stddev_stat(x: torch.Tensor, sg: int, eps: float = EPS) -> torch.T
 
 def bias_lrelu_gain(x: torch.Tensor, b: Optional[torch.Tensor] = None,
                     slope: float = 0.2, gain: float = SQRT2,
-                    dim: int = 1) -> torch.Tensor:
+                    dim: int = 1, clamp: Optional[float] = None) -> torch.Tensor:
     """leaky_relu(x + b, slope) · gain, b broadcast along the channel axis
-    `dim` (`pallas_kernels.bias_lrelu_gain`); b None is a zero bias.
-    Differentiable to any order."""
-    return _BiasLreluGain.apply(x, b, float(slope), float(gain), int(dim))
+    `dim` (`pallas_kernels.bias_lrelu_gain`), clamped to [-clamp, clamp]
+    when a clamp is given; b None is a zero bias. Differentiable to any
+    order."""
+    clamp = None if clamp is None else float(clamp)
+    if torch.is_grad_enabled() and (x.requires_grad or (b is not None and b.requires_grad)):
+        return _BiasLreluGain.apply(x, b, float(slope), float(gain), int(dim), clamp)
+    return _bias_lrelu_gain_fwd(x, b, float(slope), float(gain), int(dim), clamp)

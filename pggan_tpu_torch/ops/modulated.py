@@ -1,0 +1,77 @@
+"""StyleGAN2's modulated convolution (Karras et al. 2020, arXiv:1912.04958,
+§2.2, eq. 1-3): a convolution whose weights each sample scales by its own
+style s and, with demodulation, renormalises to unit norm per output channel,
+
+    w'_boik = s_bi · w_oik · d_bo,   d_bo = rsqrt(Σ_ik (s_bi · w_oik)² + eps).
+
+It is computed in the unfused form of stylegan2-ada-pytorch's
+`modulated_conv2d`: the activations are scaled before and after one
+convolution with the shared weight,
+
+    y = d ⊙ conv(x ⊙ s, w) + noise,
+
+which equals the convolution with the per-sample weights w' exactly (the
+grouped form, NVIDIA's `fused_modconv`, was timed against it at the 1024²
+cell's shapes on an H100 and lost: PERF.md). d comes from one product,
+Σ_i s_bi² Σ_k w_oik², in f32. With `up = 2` the input is first upsampled
+through the FIR filter (`upsample2d`, padding as NVIDIA's `conv2d_resample`
+takes it), then convolved without padding.
+
+x is a logical NCHW tensor in `torch.channels_last` memory, in the block's
+compute dtype; weight ([O, I, kh, kw]) and styles ([B, I]) are f32 and are
+cast to x's dtype where they meet it, as NVIDIA's code does. `counts`
+tallies the calls; each call is a `stylegan2.modconv` profiler range, and
+its upsample a `stylegan2.resample` range inside it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from pggan_tpu_torch.ops.resample import upsample2d
+
+EPS = 1e-8
+MODCONV_SPAN = "stylegan2.modconv"
+RESAMPLE_SPAN = "stylegan2.resample"
+
+# Modulated convolutions since the last `reset_counts()`.
+counts = {"modconv": 0}
+
+
+def reset_counts() -> None:
+    for name in counts:
+        counts[name] = 0
+
+
+def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor, styles: torch.Tensor, *,
+                     demodulate: bool = True, up: int = 1, padding: int = 0,
+                     resample_filter: Optional[torch.Tensor] = None,
+                     noise: Optional[torch.Tensor] = None,
+                     flip_weight: bool = True) -> torch.Tensor:
+    """[B, I, H, W] → [B, O, H·up, W·up]. `flip_weight=False` convolves
+    (NVIDIA's up = 2 layers), True correlates; `noise` ([H·up, W·up]) is
+    added after the demodulation."""
+    counts["modconv"] += 1
+    with record_function(MODCONV_SPAN):
+        batch, dt = x.shape[0], x.dtype
+        x = x * styles.to(dt).reshape(batch, -1, 1, 1)
+        w = weight.to(dt)
+        if not flip_weight:
+            w = w.flip([2, 3])
+        if up > 1:
+            with record_function(RESAMPLE_SPAN):
+                x = upsample2d(x, resample_filter, up=up, padding=padding)
+            padding = 0
+        x = F.conv2d(x, w, padding=padding)
+        if demodulate:
+            # d [B, O] = rsqrt(Σ_i s_bi² Σ_k w_oik² + eps), one f32 product
+            d = torch.rsqrt(styles.float().square() @ weight.float().square().sum(dim=[2, 3]).t()
+                            + EPS)
+            d = d.to(dt).reshape(batch, -1, 1, 1)
+            # x·d + noise in one pass, as NVIDIA's `fma`
+            return x * d if noise is None else torch.addcmul(noise.to(dt), x, d)
+        return x if noise is None else x + noise.to(dt)

@@ -69,8 +69,9 @@ ACTS = ["linear", "relu", "lrelu", "tanh", "sigmoid", "elu", "selu", "softplus",
 
 @pytest.mark.parametrize("act", ACTS)
 def test_bias_act_with_clamp_matches_xla_path(act):
-    """Every activation with a bias, its default gain and a clamp (so lrelu
-    too takes the torch-ops path) against `bias_act(impl='xla')`."""
+    """Every activation with a bias, its default gain and a clamp against
+    `bias_act(impl='xla')`; lrelu takes the kernel's route, whose CPU path is
+    the kernel's plain version with the clamp."""
     x, b = _rand((2, 4, 4, 8), seed=1) * 2, _rand((8,), seed=2)
     want = jbasic.bias_act(jnp.asarray(x), jnp.asarray(b), act=act, clamp=1.5)
     got = basic.bias_act(_nchw(x), torch.from_numpy(b), act=act, clamp=1.5)
