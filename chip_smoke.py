@@ -196,8 +196,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      at 4², 64² (f32) and 128², 1024² (bf16), without a clamp and with
      ±256, against `bias_lrelu_gain_plain` bit for bit, one launch a call;
      then one 1024² forward at batch 16 with the counts set to 0 just
-     before: 25 bias_lrelu_gain launches, 26 modulated convs, a finite
-     image, the plain version's forward beside it, and the peak memory.
+     before: 25 bias_lrelu_gain launches, 16 upfirdn2d launches, 26
+     modulated convs, a finite image, the plain version's forward beside
+     it, and the peak memory;
+ 23. the upfirdn2d kernel (`csrc/upfirdn2d.cu`): one config-f forward at
+     batch 16 with the counts set to 0 (16 launches) recording each call's
+     shape, dtype and pads; at each of those calls, fresh inputs through
+     the kernel against the composition (`ops.resample.upfirdn2d_plain`)
+     on the card (f32 within 1e-6 of the largest value, bf16 at most 1 ulp
+     apart); the ops-layer calls of phase 11d that reach upfirdn2d, f32
+     against the CPU, bf16 against the composition, with their launches;
+     an up-4 call and an NCHW-strided call, each raising its reason
+     without a launch; filtered_lrelu's second derivative (the autograd
+     rule's backward launches the kernel) against the CPU; conv0's
+     upsample at 1024² timed (call and device ms against the composition,
+     cuDNN's depthwise `conv_transpose2d` and the bytes' bound) and each
+     recorded call's device time.
 
 The second-to-last lines are a JSON object describing the kernels and the
 card's name and power limit; the last line is
@@ -250,7 +264,7 @@ FORWARD_KERNELS = ("pixel_norm", "lrelu_pixel_norm")
 TRAIN_STEPS = 4            # steps of the training slice (phase 8)
 # Kernel launches of one bf16 r1 step at scale 6 (phases 8 and 12).
 STEP_LAUNCHES = {"pixel_norm": 4, "lrelu_pixel_norm": 26, "lrelu_pixel_norm_bwd": 13,
-                 "minibatch_stddev_stat": 3, "bias_lrelu_gain": 0}
+                 "minibatch_stddev_stat": 3, "bias_lrelu_gain": 0, "upfirdn2d": 0}
 # Phase 12: the folder of images, the steps of each run, the step after
 # which SIGTERM arrives (counted from the run's first), and the batches the
 # pipeline alone is timed over after warming its decode cache.
@@ -296,7 +310,7 @@ SERVE_LAUNCHES = {"pixel_norm": 2, "lrelu_pixel_norm": 13}
 # Launches of one validation batch (G's forward, D on reals and on fakes,
 # no backward) and of one FID fake batch (G's forward).
 VAL_LAUNCHES = {"pixel_norm": 2, "lrelu_pixel_norm": 13, "lrelu_pixel_norm_bwd": 0,
-                "minibatch_stddev_stat": 2, "bias_lrelu_gain": 0}
+                "minibatch_stddev_stat": 2, "bias_lrelu_gain": 0, "upfirdn2d": 0}
 FAKE_LAUNCHES = dict(VAL_LAUNCHES, minibatch_stddev_stat=0)
 # Phase 16: a reference (PyTorch) checkpoint at scale 6: G's blocks whose
 # second conv sits at Sequential index 2 (no PixelNorm modules between the
@@ -461,6 +475,12 @@ TF32_FLOPS, BF16_FLOPS = 495e12, 989e12
 SG2_EPILOGUES = [(BATCH, 512), (BATCH, 4, 4, 512), (BATCH, 64, 64, 512),
                  (BATCH, 128, 128, 512), (BATCH, 1024, 1024, 64)]
 SG2_CLAMP, SG2_SCALE, SG2_SEED = 256.0, 300.0, 22
+# FIR upsamples of a config-f forward: conv0's and the RGB skip's in each of
+# the blocks 8² to 1024².
+SG2_UPSAMPLES = 16
+# Phase 23: the kernel against the composition, f32 to this share of the
+# largest value; bf16 at most this many units in the last place apart.
+UPFIRDN_F32_REL, UPFIRDN_BF16_ULPS = 1e-6, 1
 # Untimed replays before `device_ms` times its graph (see there).
 DEVICE_WARM_S = 0.1
 
@@ -742,7 +762,8 @@ def sample_demo(demo, kernels, save_root, run_id):
     check(rc == 0, f"demo returned {rc}")
     forwards = n_samples // BATCH
     want = {"pixel_norm": 2 * forwards, "lrelu_pixel_norm": 13 * forwards,
-            "lrelu_pixel_norm_bwd": 0, "minibatch_stddev_stat": 0, "bias_lrelu_gain": 0}
+            "lrelu_pixel_norm_bwd": 0, "minibatch_stddev_stat": 0, "bias_lrelu_gain": 0,
+            "upfirdn2d": 0}
     check(launches == want, f"launches {launches}, expected {want}")
     files = sorted(os.listdir(out_dir))
     check(len(files) == n_samples, f"{len(files)} files written")
@@ -1687,6 +1708,7 @@ def run_ops_path(kernels, ops, gen):
         launches = dict(kernels.launches)
         want = dict.fromkeys(launches, 0)
         want["bias_lrelu_gain"] = 1 + len(OPS_SHAPES)
+        want["upfirdn2d"] = 2 * len(OPS_SHAPES)          # filtered_lrelu's up and down
         check(launches == want, f"ops path launches {launches}, expected {want}")
         with plain_bias_act(kernels):
             plain_outs = drive()
@@ -4376,7 +4398,8 @@ def run_sg2_forward(kernels, card, gen):
     """Phase 22b: one StyleGAN2 config-f forward at 1024² (bf16 blocks from
     128², float32 below), batch 16, every count set to 0 just before: 25
     bias_lrelu_gain launches (8 mapping, 17 synthesis; the 9 toRGBs are
-    linear) and 26 modulated convs; the image finite; the same forward with
+    linear), 16 upfirdn2d launches and 26 modulated convs; the image
+    finite; the same forward with
     the plain version of the kernel. Returns the launches."""
     from pggan_tpu_torch.models.stylegan2 import StyleGAN2Generator
     from pggan_tpu_torch.ops import modulated
@@ -4400,7 +4423,7 @@ def run_sg2_forward(kernels, card, gen):
             plain = G(z)
     gib = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
     want = dict.fromkeys(launches, 0)
-    want["bias_lrelu_gain"] = 25
+    want.update(bias_lrelu_gain=25, upfirdn2d=SG2_UPSAMPLES)
     check(launches == want, f"StyleGAN2 forward launches {launches}, expected {want}")
     check(modconvs == 26, f"{modconvs} modulated convs a forward, expected 26")
     check(img.shape == (BATCH, 1024, 1024, 3) and img.dtype == torch.float32,
@@ -4429,6 +4452,281 @@ def run_sg2_phase(kernels, card):
     worst = check_sg2_epilogues(kernels, ops, gen)
     torch.cuda.empty_cache()
     return worst, run_sg2_forward(kernels, card, gen)
+
+
+# ---- phase 23: the upfirdn2d kernel ------------------------------------------
+
+def record_upfirdn_calls(kernels, resample, gen):
+    """Phase 23a: one config-f forward with every count set to 0 just before,
+    recording (shape, dtype, filter, up, down, pads, flip, gain) of each
+    upfirdn2d call. Checks 16 launches; returns the calls and the count of
+    launches."""
+    from pggan_tpu_torch.models.stylegan2 import StyleGAN2Generator
+
+    G = StyleGAN2Generator(seed=SG2_SEED).to(DEVICE).eval().requires_grad_(False)
+    z = torch.randn((BATCH, G.z_dim), generator=gen, device=DEVICE)
+    calls = []
+    route = resample._upfirdn2d
+
+    def recording(x, *args):
+        calls.append((tuple(x.shape), x.dtype, *args))
+        return route(x, *args)
+
+    with torch.no_grad():
+        G(z)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with mock.patch.object(resample, "_upfirdn2d", recording):
+            G(z)
+        torch.cuda.synchronize()
+    launches = kernels.launches["upfirdn2d"]
+    check(launches == SG2_UPSAMPLES and len(calls) == SG2_UPSAMPLES,
+          f"a config-f forward: {launches} upfirdn2d launches and {len(calls)} calls, "
+          f"expected {SG2_UPSAMPLES}")
+    del G
+    torch.cuda.empty_cache()
+    return calls, launches
+
+
+def bf16_ulps(got, want):
+    """|got − want| in units of bf16's last place at the larger of the two."""
+    big = torch.maximum(got.float().abs(), want.float().abs())
+    _, exp = torch.frexp(big)
+    ulp = torch.ldexp(torch.ones_like(big), exp - 8)
+    return (got.float() - want.float()).abs() / ulp
+
+
+def compare_upfirdn(got, want):
+    """(max |diff|, the f32 bound's share used or bf16's max ulps), sample by
+    sample so that the f32 temporaries stay small."""
+    worst, measure = 0.0, 0.0
+    scale = float(want.float().abs().max())
+    for g, w in zip(got, want):
+        diff = float((g.float() - w.float()).abs().max())
+        worst = max(worst, diff)
+        if got.dtype == torch.bfloat16:
+            measure = max(measure, float(bf16_ulps(g, w).max()))
+        else:
+            measure = max(measure, diff / (scale or 1.0))
+    return worst, measure
+
+
+def check_upfirdn_path(resample, calls, gen):
+    """Phase 23b: at each recorded call, a fresh N(0, 1) input through the
+    dispatch (the kernel) against `upfirdn2d_plain` on the card. Returns
+    [(shape, dtype, max |diff|, f32 share of the largest or bf16 ulps)]."""
+    rows = []
+    with torch.no_grad():
+        for shape, dt, f, up, down, pads, flip, gain in calls:
+            x = nhwc((shape[0], shape[2], shape[3], shape[1]), dt, gen)
+            got = resample.upfirdn2d(x, f, up=up, down=down, padding=pads,
+                                     flip_filter=flip, gain=gain)
+            want = resample.upfirdn2d_plain(x, f, up=up, down=down, padding=pads,
+                                            flip_filter=flip, gain=gain)
+            check(got.shape == want.shape and got.dtype == dt
+                  and got.is_contiguous(memory_format=torch.channels_last),
+                  f"upfirdn2d {shape}: {tuple(got.shape)} {got.dtype}")
+            err, measure = compare_upfirdn(got, want)
+            bound = UPFIRDN_BF16_ULPS if dt == torch.bfloat16 else UPFIRDN_F32_REL
+            label = f"{list(shape)} {str(dt)[6:]} pads {list(pads)}"
+            check(measure <= bound, f"upfirdn2d {label}: kernel vs composition {measure:.3g} "
+                                    f"(bound {bound:g}), max |diff| {err:.3g}")
+            rows.append((shape, dt, err, measure))
+            del x, got, want
+            torch.cuda.empty_cache()
+    print(f"[23 upfirdn] kernel vs composition on the card at the {len(rows)} calls of a "
+          f"config-f forward: " + "; ".join(
+              f"{list(shape)} {str(dt)[6:]}: |diff| {err:.3g} "
+              f"({'ulps' if dt == torch.bfloat16 else 'of the largest'} {m:.3g})"
+              for shape, dt, err, m in rows))
+    return rows
+
+
+def check_upfirdn_ops(kernels, ops, resample):
+    """Phase 23c: phase 11d's ops-layer calls that reach upfirdn2d, with their
+    launches: f32 on the card against the CPU (rtol 1e-5, atol 1e-5, as 11d),
+    bf16 through the kernel against the composition (at most 1 ulp for a
+    single upfirdn2d); an up-4 call and an NCHW-strided call raise a
+    ValueError naming the reason, with no launch; filtered_lrelu's second
+    derivative on the card against the CPU, its backward launching the
+    kernel."""
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 9, 6), dtype=np.float32)).permute(0, 3, 1, 2)
+    b = torch.from_numpy(rng.standard_normal(6, dtype=np.float32))
+    w3 = torch.from_numpy(rng.standard_normal((3, 3, 6, 4), dtype=np.float32))
+    filt = {d: {"f4": ops.setup_filter([1, 3, 3, 1], device=d),
+                "f8": ops.setup_filter(list(range(1, 9)), device=d),
+                "f23": torch.tensor([[1.0, 2.0, 0.0], [0.0, 1.0, 3.0]], device=d)}
+            for d in ("cpu", DEVICE)}
+    cases = [   # (name, fn(x, d, filters), kernel launches, one upfirdn2d)
+        ("upfirdn2d up 2", lambda v, d, f: ops.upfirdn2d(v, f["f4"], up=2,
+                                                          padding=(2, 1, 2, 1)), 1, True),
+        ("upfirdn2d down 2, crop, 8 taps", lambda v, d, f: ops.upfirdn2d(
+            v, f["f8"], down=2, padding=(3, 2, -1, 4)), 1, True),
+        ("upfirdn2d per axis", lambda v, d, f: ops.upfirdn2d(
+            v, f["f23"], up=(2, 1), down=(1, 2), padding=(-1, 2, 1, -2)), 1, True),
+        ("filter2d", lambda v, d, f: ops.filter2d(v, f["f4"], flip_filter=True), 1, True),
+        ("upsample2d", lambda v, d, f: ops.upsample2d(v, f["f4"]), 1, True),
+        ("downsample2d", lambda v, d, f: ops.downsample2d(v, f["f4"]), 1, True),
+        ("downsample2d box", lambda v, d, f: ops.downsample2d(v), 1, True),
+        ("filtered_lrelu", lambda v, d, f: ops.filtered_lrelu(
+            v, f["f4"], f["f4"], b.to(d), up=2, down=2, padding=3), 2, False),
+        ("conv2d_resample up 2", lambda v, d, f: ops.conv2d_resample(
+            v, w3.to(d), f["f4"], up=2, padding=1), 1, False),
+        ("conv2d_resample down 2", lambda v, d, f: ops.conv2d_resample(
+            v, w3.to(d), f["f4"], down=2, padding=1), 1, False),
+    ]
+    worst, ulps = 0.0, 0.0
+    with torch.no_grad():
+        for name, fn, n_launch, single in cases:
+            want = fn(x, "cpu", filt["cpu"])
+            kernels.reset_launch_counts()
+            got = fn(x.to(DEVICE), DEVICE, filt[DEVICE])
+            torch.cuda.synchronize()
+            launches = kernels.launches["upfirdn2d"]
+            check(launches == n_launch, f"{name}: {launches} launches, expected {n_launch}")
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5,
+                                       msg=lambda m, name=name: f"{name} f32: {m}")
+            worst = max(worst, float((got.cpu() - want).abs().max()))
+            if single:
+                xb = x.to(DEVICE, torch.bfloat16)
+                got_b = fn(xb, DEVICE, filt[DEVICE])
+                with mock.patch.object(resample, "_upfirdn2d", resample.upfirdn2d_plain):
+                    want_b = fn(xb, DEVICE, filt[DEVICE])
+                u = float(bf16_ulps(got_b, want_b).max())
+                check(u <= UPFIRDN_BF16_ULPS, f"{name} bf16: {u} ulps from the composition")
+                ulps = max(ulps, u)
+        kernels.reset_launch_counts()
+        refusals = []
+        for label, v, f, kw, words in (
+                ("up 4", x.to(DEVICE), None, dict(up=4, padding=(0, -1, 0, -1)),
+                 "1 or 2 on each axis"),
+                ("NCHW-strided", x.to(DEVICE).contiguous(), filt[DEVICE]["f4"],
+                 dict(up=2, padding=(2, 1, 2, 1)), "channels_last")):
+            try:
+                ops.upfirdn2d(v, f, **kw)
+            except ValueError as e:
+                check(words in str(e), f"{label}: raised {e!r}, expected the words {words!r}")
+                refusals.append(label)
+            else:
+                raise AssertionError(f"{label}: a CUDA call outside the envelope did not raise")
+        check(kernels.launches["upfirdn2d"] == 0,
+              f"{kernels.launches['upfirdn2d']} launches for the calls outside the envelope")
+
+    # grad of sum(grad(sum(filtered_lrelu(x)²))²), on the card and on the CPU
+    second = {}
+    for d in ("cpu", DEVICE):
+        xd = x.to(d).requires_grad_(True)
+        kernels.reset_launch_counts()
+        (g1,) = torch.autograd.grad(ops.filtered_lrelu(xd, filt[d]["f4"], up=2).square().sum(),
+                                    xd, create_graph=True)
+        (second[d],) = torch.autograd.grad(g1.square().sum(), xd)
+        second[d] = second[d].cpu()
+        if d == DEVICE:
+            torch.cuda.synchronize()
+            grad_launches = kernels.launches["upfirdn2d"]
+    scale = float(second["cpu"].abs().max())
+    err = float((second[DEVICE] - second["cpu"]).abs().max())
+    check(err <= 1e-4 * scale, f"filtered_lrelu second derivative: |diff| {err:.3g} of {scale:.3g}")
+    # forward, the first backward (recorded), and the second backward's two
+    check(grad_launches >= 3, f"{grad_launches} upfirdn2d launches in the second derivative")
+    print(f"[23 upfirdn] {len(cases)} ops-layer calls through the kernel (launches as "
+          f"expected, no composition): card vs CPU max |diff| {worst:.3g} (rtol 1e-5, atol "
+          f"1e-5); bf16 kernel vs composition at most {ulps:g} ulp; {' and '.join(refusals)} "
+          f"raised, no launch; filtered_lrelu's second derivative card vs CPU |diff| {err:.3g} "
+          f"of {scale:.3g} (bound 1e-4 of it), {grad_launches} kernel launches")
+    return worst
+
+
+def time_upfirdn(kernels, resample, calls, gen, card):
+    """Phase 23d: conv0's upsample at 1024² (the largest recorded call):
+    the kernel's, the composition's and cuDNN's depthwise
+    `F.conv_transpose2d` (stride 2, the filter as its weight: the same 2x
+    upsample where the pads are (f − 1, f − 2) each axis, as conv0's are)
+    call times (CUDA events, in turns), the kernel's device time, against
+    the bound of its bytes; then each recorded call's device time. Returns
+    (call ms, device ms, composition ms, conv_transpose2d ms or None, bytes,
+    shape, sum of the device ms)."""
+    def make(shape, dt, f, up, down, pads, flip, gain):
+        x = nhwc((shape[0], shape[2], shape[3], shape[1]), dt, gen)
+        kw = dict(up=up, down=down, padding=pads, flip_filter=flip, gain=gain)
+        nbytes = (x.numel() + resample.upfirdn2d(x, f, **kw).numel()) * x.element_size()
+        return (x, lambda: resample.upfirdn2d(x, f, **kw),
+                lambda: resample.upfirdn2d_plain(x, f, **kw), nbytes)
+
+    def transposed(x, f, up, down, pads, flip, gain):
+        """conv_transpose2d computing this call, or None where it cannot."""
+        taps = torch.outer(f, f) if f.ndim == 1 else f
+        fh, fw = taps.shape
+        if up != (2, 2) or down != (1, 1) or tuple(pads) != (fw - 1, fw - 2, fh - 1, fh - 2):
+            return None
+        # conv_transpose2d convolves the zero-inserted x with its weight, as
+        # upfirdn2d does without flip_filter
+        taps = taps.flip([0, 1]) if flip else taps
+        w = (taps * gain).to(x.dtype).expand(x.shape[1], 1, fh, fw).contiguous()
+        return lambda: F.conv_transpose2d(x, w, stride=2, groups=x.shape[1])
+
+    with torch.no_grad():
+        big = max(calls, key=lambda c: math.prod(c[0]) * (2 if c[1] == torch.bfloat16 else 4))
+        x, kernel, plain, nbytes = make(*big)
+        library = transposed(x, *big[2:])
+        if library is None:
+            plain_ms, kernel_ms = abba_ms(plain, kernel, iters=3)
+            lib_ms, lib_note = None, "conv_transpose2d cannot compute it"
+        else:
+            plain_ms, kernel_ms, lib_ms = abba_ms(plain, kernel, library, iters=3)
+            lib, ours = library(), kernel()
+            check(lib.shape == ours.shape, f"conv_transpose2d gives {tuple(lib.shape)}, "
+                                           f"the kernel {tuple(ours.shape)}")
+            err, measure = compare_upfirdn(lib, ours)
+            lib_note = (f"cuDNN's conv_transpose2d {lib_ms:.3f} ms ({lib_ms / kernel_ms:.1f}x), "
+                        f"max |diff| {err:.3g} from the kernel ({measure:.3g} "
+                        f"{'ulps' if x.dtype == torch.bfloat16 else 'of the largest'})")
+            del lib, ours
+        dev = device_ms(kernel, kernels, "upfirdn2d", calls=5)
+        b_ms, _ = bound_ms(nbytes, 0)
+        print(f"[23 times] upfirdn2d {list(big[0])} {str(big[1])[6:]} pads {list(big[5])} "
+              f"(conv0's upsample at 1024²): kernel call {kernel_ms:.4f} ms, device {dev:.4f} "
+              f"ms = {100 * b_ms / dev:.1f} % of its bound {b_ms:.4f} ms ({nbytes / 1e9:.3f} GB "
+              f"read + written, {nbytes / dev / 1e6:.0f} GB/s); the composition "
+              f"{plain_ms:.3f} ms ({plain_ms / kernel_ms:.1f}x); {lib_note}; {card}")
+        del x, kernel, plain, library
+        torch.cuda.empty_cache()
+        total, total_bound, parts = 0.0, 0.0, []
+        for call in calls:
+            _, kernel, _, n = make(*call)
+            d = device_ms(kernel, kernels, "upfirdn2d", calls=5 if n > 1e9 else 20)
+            total += d
+            total_bound += bound_ms(n, 0)[0]
+            parts.append(f"{list(call[0])} {str(call[1])[6:]} {d:.4f}")
+            del kernel
+        torch.cuda.empty_cache()
+    print(f"[23 times] device ms of the {len(calls)} calls of a config-f forward: "
+          + "; ".join(parts) + f"; sum {total:.3f} ms against a bound of {total_bound:.3f} ms "
+          f"({100 * total_bound / total:.1f} %); {card}")
+    return kernel_ms, dev, plain_ms, lib_ms, nbytes, big[0], total
+
+
+def run_upfirdn_phase(kernels, card):
+    """Phase 23: the upfirdn2d kernel (23a-23d). Returns (launches a config-f
+    forward, conv0's max |diff| and bf16 ulps against the composition,
+    conv0's times, conv_transpose2d's ms, shape, bytes)."""
+    from pggan_tpu_torch import ops
+    from pggan_tpu_torch.ops import resample
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SG2_SEED + 1)
+    calls, launches = record_upfirdn_calls(kernels, resample, gen)
+    print(f"[23 upfirdn] a config-f forward at batch {BATCH}: {launches} upfirdn2d "
+          f"launches: " + ", ".join(f"{list(c[0])} {str(c[1])[6:]}" for c in calls))
+    rows = check_upfirdn_path(resample, calls, gen)
+    check_upfirdn_ops(kernels, ops, resample)
+    kernel_ms, dev, plain_ms, lib_ms, nbytes, shape, _ = time_upfirdn(kernels, resample, calls,
+                                                                      gen, card)
+    # the timed call's reading against the composition (check_upfirdn_path)
+    _, _, err, ulps = next(r for r in rows if r[0] == shape)
+    print(f"[23 upfirdn] phase 23 took {time.perf_counter() - t_phase:.2f} s")
+    return launches, (err, ulps), (kernel_ms, dev, plain_ms), lib_ms, shape, nbytes
 
 
 def main() -> int:
@@ -4572,6 +4870,11 @@ def main() -> int:
     # ---- StyleGAN2 config-f: its clamped epilogues and one forward ----
     _, sg2_launches = run_sg2_phase(kernels, card)
 
+    # ---- the upfirdn2d kernel on StyleGAN2's path and the ops layer's ----
+    (fir_launches, (fir_err, fir_ulps), fir_times, fir_lib_ms, fir_shape,
+     fir_bytes) = run_upfirdn_phase(kernels, card)
+    max_err["upfirdn2d"] = {torch.float32: fir_err}
+
     # Every kernel of the four paths at its largest f32 shape on them;
     # `launches` is the training run's count (the demo's is checked in
     # phase 4), and bias_lrelu_gain's a StyleGAN2 forward's (phase 22). `ms` is the
@@ -4595,22 +4898,28 @@ def main() -> int:
         ("bias_lrelu_gain", "bias_act.cu", ":97", big,
          ops_times[("bias_lrelu_gain", torch.float32)], 2 * n_big * 4 + big[-1] * 4,
          4 * n_big, None),
+        ("upfirdn2d", "upfirdn2d.cu", None, fir_shape, fir_times, fir_bytes, 0, fir_lib_ms),
     ]
-    path_launches = dict(train_launches, bias_lrelu_gain=sg2_launches["bias_lrelu_gain"])
+    path_launches = dict(train_launches, bias_lrelu_gain=sg2_launches["bias_lrelu_gain"],
+                         upfirdn2d=fir_launches)
     report = []
     for (name, source, line, shape, (kernel_ms, kernel_dev, plain_ms), nbytes, flops,
          lib_ms) in entries:
         b_ms, b_by = bound_ms(nbytes, flops)
         report.append({"name": name, "route": "cuda",
                        "source": f"pggan_tpu_torch/csrc/{source}",
-                       "replaces": f"pggan_tpu/ops/pallas_kernels.py{line}",
+                       "replaces": line and f"pggan_tpu/ops/pallas_kernels.py{line}",
                        "launches": path_launches[name],
                        "max_abs_err": max_err[name][torch.float32],
                        "ms": kernel_ms, "device_ms": kernel_dev,
                        "plain_ms": plain_ms, "bound_ms": b_ms,
                        "bound_by": b_by, "library_ms": lib_ms,
-                       "chunked_launches": chunk_launches[name],
-                       "shape": list(shape), "dtype": "float32"})
+                       "chunked_launches": chunk_launches.get(name, 0),
+                       "shape": list(shape),
+                       "dtype": "bfloat16" if name == "upfirdn2d" else "float32"})
+    # upfirdn2d's row is its bf16 timed call: its error against the
+    # composition at that call, in bf16's units in the last place too
+    report[-1]["max_ulps"] = fir_ulps
     print(json.dumps({"kernels": report}))
     print(card)
     # the cards the run used: one, and every visible card on the spawn route

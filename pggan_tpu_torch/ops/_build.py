@@ -61,6 +61,10 @@ _SIGNATURES = {
     "pggan_bias_lrelu_gain": (_c_int, [_c_void_p, _c_void_p, _c_void_p, _c_int64,
                                        _c_int, _c_int, _c_int, _c_float, _c_float,
                                        _c_float, _c_void_p]),
+    # x, f (or null), y, n, c, h, w, oh, ow, upx, upy, downx, downy, padx0,
+    # pady0, fh, fw, f ndim, flip, gain, dtype, stream
+    "pggan_upfirdn2d": (_c_int, [_c_void_p, _c_void_p, _c_void_p] + [_c_int] * 16
+                        + [_c_float, _c_int, _c_void_p]),
     "pggan_cuda_error_string": (ctypes.c_char_p, [_c_int]),
 }
 

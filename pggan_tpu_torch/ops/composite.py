@@ -4,8 +4,10 @@
 4-D activations are logical NCHW tensors in `torch.channels_last` memory;
 convolution weights are HWIO, as in the JAX package. `filtered_lrelu`'s
 activation is `bias_act`'s leaky ReLU, so on a CUDA tensor, with or without a
-clamp, it is one launch of the `bias_lrelu_gain` kernel; the rest is
-upfirdn2d, cuDNN and torch ops. Everything is differentiable to any order.
+clamp, it is one launch of the `bias_lrelu_gain` kernel; its up and down
+stages, and `conv2d_resample`'s, are `upfirdn2d` (one launch of its kernel
+each on a CUDA tensor inside the kernel's envelope); the rest is cuDNN and
+torch ops. Everything is differentiable to any order.
 """
 
 from __future__ import annotations

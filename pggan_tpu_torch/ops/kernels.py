@@ -9,10 +9,15 @@ their autograd rules and the launch counters — the counterpart of
 | `lrelu_pixel_norm_bwd`  | `pggan_lrelu_pixel_norm_bwd` (norm_kernels) | `_lrelu_pn_bwd_kernel`          |
 | `minibatch_stddev_stat` | `pggan_minibatch_stddev_stat` (mb_stddev)   | `_mb_stddev_kernel`             |
 | `bias_lrelu_gain`       | `pggan_bias_lrelu_gain` (bias_act.cu)       | `_bias_lrelu_kernel`            |
+| `upfirdn2d`             | `pggan_upfirdn2d` (upfirdn2d.cu)            | none (XLA ops in the JAX package) |
 
 The device decides the path: on a CPU tensor a wrapper runs the plain
 version; on a CUDA tensor it launches the kernel or raises. It never copies
 its input into another layout and never falls back to the plain version.
+`upfirdn2d` has no plain version here and no autograd rule: `ops.resample`
+calls it for CUDA tensors, raises where a call lies outside the kernel's
+envelope, runs its own composition of torch ops on other devices, and
+holds the op's autograd rule.
 While `torch.export` traces a program, `pixel_norm` and `lrelu_pixel_norm`
 call the registered operators `pggan::pixel_norm` and
 `pggan::lrelu_pixel_norm` instead, which run the same forwards when the
@@ -57,7 +62,7 @@ SQRT2 = math.sqrt(2.0)
 
 # Kernel launches per CUDA entry point since the last `reset_launch_counts()`.
 launches = {"pixel_norm": 0, "lrelu_pixel_norm": 0, "lrelu_pixel_norm_bwd": 0,
-            "minibatch_stddev_stat": 0, "bias_lrelu_gain": 0}
+            "minibatch_stddev_stat": 0, "bias_lrelu_gain": 0, "upfirdn2d": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -364,6 +369,32 @@ def _bias_lrelu_gain_fwd(x: torch.Tensor, b: Optional[torch.Tensor], slope: floa
           None if b is None else b.data_ptr(), y.data_ptr(), n, cols,
           _DTYPE_CODES[x.dtype], 0 if b is None else _DTYPE_CODES[b.dtype],
           float(slope), float(gain), -1.0 if clamp is None else float(clamp))
+    return y
+
+
+def upfirdn2d(x: torch.Tensor, f: Optional[torch.Tensor], up: Tuple[int, int],
+              down: Tuple[int, int], pad0: Tuple[int, int], out_hw: Tuple[int, int],
+              flip_filter: bool, gain: float) -> torch.Tensor:
+    """upfirdn2d (`ops.resample.upfirdn2d`'s function) in one launch: x a
+    channels_last [N, C, H, W] CUDA tensor, f an f32 filter on x's card
+    (1-D: its outer product; None: one tap of 1), `up`, `down` and the
+    leading pads `pad0` as (x, y), the output's (OH, OW) as the caller
+    computed them. The caller keeps to the kernel's envelope
+    (`ops.resample.envelope_refusal`); the C side refuses what lies
+    outside it."""
+    _check_dtype(x)
+    _cuda_or_raise("upfirdn2d", x)
+    n, c, h, w = x.shape
+    y = torch.empty((n, c, *out_hw), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    if f is None:
+        fh = fw = 1
+    else:
+        fh, fw = (f.shape[0], f.shape[0]) if f.ndim == 1 else f.shape
+    _call("upfirdn2d", "pggan_upfirdn2d", x, x.data_ptr(),
+          None if f is None else f.data_ptr(), y.data_ptr(), n, c, h, w, *out_hw, *up, *down,
+          *pad0, fh, fw, 0 if f is None else f.ndim, int(flip_filter), float(gain),
+          _DTYPE_CODES[x.dtype])
     return y
 
 

@@ -4,11 +4,23 @@
 4-D activations are logical NCHW tensors in `torch.channels_last` memory;
 filters are f32 [fh, fw] tensors (a 1-D filter is applied as its outer
 product). upfirdn2d is zero-insertion upsampling, padding (negative pads
-crop), an FIR filter and decimation: the zero insertion is a reshape and a
-pad of the NHWC view, the filter a depthwise `F.conv2d` with the stride as
-the decimation, accumulated in f32 as the JAX package's
-`preferred_element_type` does. Every op follows its input's device and is
-differentiable to any order through autograd.
+crop), an FIR filter and decimation. The device of the input picks the
+route, as in `ops.kernels`:
+  - a CUDA tensor launches the polyphase kernel (`csrc/upfirdn2d.cu`,
+    counted in `ops.kernels.launches["upfirdn2d"]`), or raises a
+    ValueError that names the reason where the call lies outside the
+    kernel's envelope (`envelope_refusal`: f32 or bf16, channels_last-dense,
+    up and down 1 or 2 on each axis, at most 8 taps an axis);
+  - any other tensor runs the composition `upfirdn2d_plain`: the zero
+    insertion is a reshape and a pad of the NHWC view, the filter a
+    depthwise `F.conv2d` with the stride as the decimation, accumulated in
+    f32 as the JAX package's `preferred_element_type` does.
+Both round the taps to x's dtype, sum in f32 and round once to x's dtype.
+Every op follows its input's device and is differentiable to any order:
+where autograd records, `upfirdn2d` is an `autograd.Function` whose
+backward is `upfirdn2d` of the gradient with up and down swapped, the pads
+transposed and the filter flipped (NVIDIA's rule in stylegan2-ada-pytorch's
+`torch_utils/ops/upfirdn2d.py`), so each order runs the same route.
 """
 
 from __future__ import annotations
@@ -18,7 +30,15 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from pggan_tpu_torch.ops import kernels
+
 _PadT = Union[int, Sequence[int]]
+_Pair = Tuple[int, int]
+_Pads = Tuple[int, int, int, int]
+
+_MAX_TAPS = 8            # the kernel's taps an axis
+_MAX_GRID = 65535        # the kernel's grid: output rows, batch
+_MAX_ROW = 2 ** 30       # the kernel's threads a row: at most output columns x channels
 
 
 def _parse_scaling(s) -> Tuple[int, int]:
@@ -72,19 +92,68 @@ def setup_filter(f, device="cuda", normalize: bool = True, flip_filter: bool = F
     return f.to(device)
 
 
-def upfirdn2d(x: torch.Tensor, f: Optional[torch.Tensor], up=1, down=1,
-              padding: _PadT = 0, flip_filter: bool = False,
-              gain: float = 1.0) -> torch.Tensor:
-    """Upsample (zero insertion), pad, FIR-filter, downsample
-    (`resample.py:70-116`). `flip_filter=False` applies f as a convolution,
-    True as a correlation; `gain` scales the taps."""
+def _output_size(x: torch.Tensor, fh: int, fw: int, up: _Pair, down: _Pair,
+                 pads: _Pads) -> _Pair:
+    """(OH, OW) of upfirdn2d: the padded, zero-inserted extent less the
+    filter's, over the decimation, plus one."""
+    _, _, h, w = x.shape
+    x0, x1, y0, y1 = pads
+    return ((h * up[1] + y0 + y1 - fh) // down[1] + 1,
+            (w * up[0] + x0 + x1 - fw) // down[0] + 1)
+
+
+def envelope_refusal(x: torch.Tensor, f: Optional[torch.Tensor], up: _Pair, down: _Pair,
+                     out_hw: _Pair) -> Optional[str]:
+    """Why the upfirdn2d kernel cannot compute this call, or None where it
+    can: x f32 or bf16, 4-D and channels_last-dense, not empty; up and down
+    (x, y) 1 or 2 each; f None or a contiguous 1-D or 2-D f32 filter on x's
+    device of at most 8 taps an axis that does not require grad; an output
+    (OH, OW) whose rows, batch and row length fit the kernel's grid. Reads
+    only metadata, so it answers for a tensor on any device."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        return f"x is {x.dtype}, the kernel takes float32 or bfloat16"
+    if x.ndim != 4 or x.numel() == 0:
+        return f"x has shape {tuple(x.shape)}, the kernel takes a non-empty 4-D tensor"
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        return (f"x has strides {x.stride()} for shape {tuple(x.shape)}, the kernel takes "
+                "channels_last-contiguous (NHWC) memory")
+    if any(s not in (1, 2) for s in (*up, *down)):
+        return f"up {up} and down {down}: the kernel takes 1 or 2 on each axis"
+    if f is not None and (f.dtype != torch.float32 or f.ndim not in (1, 2)
+                          or f.device != x.device or not f.is_contiguous()):
+        return (f"the filter is a {f.ndim}-D {f.dtype} tensor on {f.device}, the kernel takes "
+                "a contiguous 1-D or 2-D float32 filter on x's device")
+    if f is not None and f.requires_grad:
+        return "the filter requires grad, and the kernel has no gradient for it"
+    fh, fw = _filter_size(f)
+    if max(fh, fw) > _MAX_TAPS:
+        return f"a {fh}x{fw} filter, the kernel takes at most {_MAX_TAPS} taps an axis"
+    oh, ow = out_hw
+    if min(oh, ow) < 1:
+        return f"an empty output {oh}x{ow}"
+    if max(oh, x.shape[0]) > _MAX_GRID or ow * x.shape[1] > _MAX_ROW:
+        return (f"batch {x.shape[0]}, {oh} output rows or {ow}x{x.shape[1]} values a row "
+                f"exceed the kernel's grid ({_MAX_GRID} rows and batch, {_MAX_ROW} a row)")
+    return None
+
+
+def _filter_on(f: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
+    return None if f is None else f.to(device=x.device, dtype=torch.float32)
+
+
+def upfirdn2d_plain(x: torch.Tensor, f: Optional[torch.Tensor], up=1, down=1,
+                    padding: _PadT = 0, flip_filter: bool = False,
+                    gain: float = 1.0) -> torch.Tensor:
+    """`upfirdn2d` as a composition of torch ops on any device and layout
+    (`resample.py:70-116`): the route of every tensor but a CUDA one, and
+    the reference the kernel is held to."""
     n, c, h, w = x.shape
     upx, upy = _parse_scaling(up)
     downx, downy = _parse_scaling(down)
     padx0, padx1, pady0, pady1 = _parse_padding(padding)
     if f is None:
         f = torch.ones((1, 1), dtype=torch.float32)
-    f = f.to(device=x.device, dtype=torch.float32)
+    f = _filter_on(f, x)
     if f.ndim == 1:
         f = torch.outer(f, f)
     fh, fw = f.shape
@@ -102,6 +171,60 @@ def upfirdn2d(x: torch.Tensor, f: Optional[torch.Tensor], up=1, down=1,
     weight = taps.to(x.dtype).float()[None, None].expand(c, 1, fh, fw)
     y = F.conv2d(xs.float(), weight, stride=(downy, downx), groups=c)
     return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _upfirdn2d(x: torch.Tensor, f: Optional[torch.Tensor], up: _Pair, down: _Pair,
+               pads: _Pads, flip_filter: bool, gain: float) -> torch.Tensor:
+    """One forward by the route x's device selects (the module's docstring)."""
+    if not x.is_cuda:
+        return upfirdn2d_plain(x, f, up, down, pads, flip_filter, gain)
+    out_hw = _output_size(x, *_filter_size(f), up, down, pads)
+    why = envelope_refusal(x, f, up, down, out_hw)
+    if why is not None:
+        raise ValueError(f"upfirdn2d: no kernel for this CUDA call: {why}")
+    return kernels.upfirdn2d(x, f, up, down, (pads[0], pads[2]), out_hw, flip_filter, gain)
+
+
+class _Upfirdn2d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, f, up, down, pads, flip_filter, gain):
+        ctx.save_for_backward(f)
+        ctx.x_hw, ctx.up, ctx.down, ctx.pads = x.shape[2:], up, down, pads
+        ctx.flip_filter, ctx.gain = flip_filter, gain
+        return _upfirdn2d(x, f, up, down, pads, flip_filter, gain)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # The transpose of the forward: up and down swapped, the filter
+        # flipped, and pads that give back x's extent (NVIDIA's
+        # `_upfirdn2d_cuda.backward`). It calls `upfirdn2d`, so it is
+        # differentiable in turn.
+        (f,) = ctx.saved_tensors
+        (ih, iw), (upx, upy), (downx, downy) = ctx.x_hw, ctx.up, ctx.down
+        padx0, _, pady0, _ = ctx.pads
+        fh, fw = _filter_size(f)
+        oh, ow = dy.shape[2:]
+        pads = (fw - padx0 - 1, iw * upx - ow * downx + padx0 - upx + 1,
+                fh - pady0 - 1, ih * upy - oh * downy + pady0 - upy + 1)
+        dx = upfirdn2d(dy.contiguous(memory_format=torch.channels_last), f, up=ctx.down,
+                       down=ctx.up, padding=pads, flip_filter=not ctx.flip_filter,
+                       gain=ctx.gain)
+        return dx, None, None, None, None, None, None
+
+
+def upfirdn2d(x: torch.Tensor, f: Optional[torch.Tensor], up=1, down=1,
+              padding: _PadT = 0, flip_filter: bool = False,
+              gain: float = 1.0) -> torch.Tensor:
+    """Upsample (zero insertion), pad, FIR-filter, downsample
+    (`resample.py:70-116`). `flip_filter=False` applies f as a convolution,
+    True as a correlation; `gain` scales the taps. A filter that requires
+    grad is differentiated through the composition, on the CPU only."""
+    up, down = _parse_scaling(up), _parse_scaling(down)
+    pads = tuple(int(p) for p in _parse_padding(padding))
+    f, flip_filter, gain = _filter_on(f, x), bool(flip_filter), float(gain)
+    if torch.is_grad_enabled() and x.requires_grad and not (f is not None and f.requires_grad):
+        return _Upfirdn2d.apply(x, f, up, down, pads, flip_filter, gain)
+    return _upfirdn2d(x, f, up, down, pads, flip_filter, gain)
 
 
 def filter2d(x: torch.Tensor, f: torch.Tensor, padding: _PadT = 0,

@@ -71,7 +71,7 @@ def test_cpu_wrappers_run_plain_and_launch_nothing():
                        kernels.bias_lrelu_gain_plain(x, None, 0.2))
     assert set(kernels.launches) == {"pixel_norm", "lrelu_pixel_norm",
                                      "lrelu_pixel_norm_bwd", "minibatch_stddev_stat",
-                                     "bias_lrelu_gain"}
+                                     "bias_lrelu_gain", "upfirdn2d"}
     assert all(n == 0 for n in kernels.launches.values())
 
 

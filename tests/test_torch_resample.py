@@ -1,7 +1,10 @@
 """pggan_tpu_torch's StyleGAN2-ops layer against the JAX package's, on the
 same numpy inputs: `bias_act`, `fma`, the upfirdn2d family,
 `bilinear_align_corners`, `filtered_lrelu`, `conv2d_resample` and
-`grid_sample`, with second derivatives where the JAX op has them.
+`grid_sample`, with second derivatives where the JAX op has them; and
+upfirdn2d's autograd rule against autograd through its composition, its
+dispatch on a CUDA tensor (the kernel, or a raise outside the kernel's
+envelope), and the envelope, none of which needs a card.
 
 f32 throughout. Tolerance rtol 1e-5, atol 1e-6, except where a sum of
 products runs in another order (convolutions, filters, the lerps):
@@ -164,6 +167,161 @@ def test_filter_wrappers(op, taps, kw):
     want = getattr(jres, op)(jnp.asarray(x), None if jf is None else jnp.asarray(jf), **kw)
     got = getattr(resample, op)(_nchw(x), tf, **kw)
     np.testing.assert_allclose(_nhwc(got), np.asarray(want), **SUM_TOL)
+
+
+# ---------------------------------------------------------------------------
+# upfirdn2d's autograd rule, its dispatch and the kernel's envelope
+# ---------------------------------------------------------------------------
+
+FUNCTION_CASES = [    # (id, op, taps, kwargs)
+    ("up2 padded", "upfirdn2d", [1, 3, 3, 1], dict(up=2, padding=(2, 1, 2, 1))),
+    ("down2 crop 8 taps", "upfirdn2d", list(range(1, 9)), dict(down=2, padding=(3, 2, -1, 4))),
+    ("filter2d", "filter2d", [1, 3, 3, 1], dict(padding=1)),
+    ("upsample2d conv0", "upsample2d", [1, 3, 3, 1], dict(padding=1)),
+]
+
+
+@pytest.mark.parametrize("name, op, taps, kw", FUNCTION_CASES, ids=[c[0] for c in FUNCTION_CASES])
+def test_upfirdn2d_function_derivatives(monkeypatch, name, op, taps, kw):
+    """Where autograd records, upfirdn2d is `_Upfirdn2d`: its value, first
+    derivative (of sum(y·r)) and second derivative (of sum(g²), g the
+    gradient of sum(y²·r)) against autograd through the composition."""
+    x = _rand((2, 9, 7, 3), seed=20)
+    f = resample.setup_filter(taps, device="cpu")
+
+    def run():
+        xt = _nchw(x.copy()).requires_grad_(True)
+        y = getattr(resample, op)(xt, f, **kw)
+        r = torch.from_numpy(np.random.RandomState(21).rand(*y.shape).astype(np.float32))
+        (g1,) = torch.autograd.grad((y * r).sum(), xt, retain_graph=True)
+        (g,) = torch.autograd.grad((y.square() * r).sum(), xt, create_graph=True)
+        (g2,) = torch.autograd.grad(g.square().sum(), xt)
+        return y, g1, g2
+
+    with monkeypatch.context() as m:
+        m.setattr(resample, "upfirdn2d", resample.upfirdn2d_plain)
+        want = run()
+    got = run()
+    assert type(got[0].grad_fn).__name__ == "_Upfirdn2dBackward"
+    assert got[0].is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(_nhwc(got[0]), _nhwc(want[0]), **SUM_TOL)
+    for g, w in zip(got[1:], want[1:]):
+        assert g.shape == w.shape
+        _close_to_largest(_nhwc(g), _nhwc(w))
+
+
+def test_upfirdn2d_on_the_cpu_runs_the_composition():
+    """A CPU call runs `upfirdn2d_plain` and launches nothing."""
+    x = _nchw(_rand((2, 6, 5, 8), seed=22))
+    f = resample.setup_filter([1, 3, 3, 1], device="cpu")
+    ops.kernels.reset_launch_counts()
+    got = resample.upfirdn2d(x, f, up=2, padding=(2, 1, 2, 1))
+    assert torch.equal(got, resample.upfirdn2d_plain(x, f, up=2, padding=(2, 1, 2, 1)))
+    assert ops.kernels.launches["upfirdn2d"] == 0
+
+
+class _OnCuda(torch.Tensor):
+    """A CPU tensor that reads as a CUDA one, to drive the dispatch here."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+ROUTE_CASES = [       # (id, x's dtype or layout, taps, kwargs, the refusal's words or None)
+    ("up2", None, [1, 3, 3, 1], dict(up=2, padding=(2, 1, 2, 1)), None),
+    ("conv0's upsample", None, [1, 3, 3, 1], dict(up=2, padding=(3, 2, 3, 2)), None),
+    ("down2 crop 8 taps", None, list(range(1, 9)), dict(down=2, padding=(3, 2, -1, 4)), None),
+    ("per axis", None, [[1, 2, 0], [0, 1, 3]],
+     dict(up=(2, 1), down=(1, 2), padding=(-1, 2, 1, -2)), None),
+    ("no filter", None, None, dict(padding=(0, -1, 1, 0)), None),
+    ("up4", None, None, dict(up=4, padding=(0, -1, 0, -1)), "1 or 2 on each axis"),
+    ("9 taps", None, list(range(1, 10)), dict(padding=4), "at most 8 taps"),
+    ("nchw", torch.contiguous_format, [1, 3, 3, 1], dict(up=2, padding=(2, 1, 2, 1)),
+     "channels_last"),
+    ("f16", torch.float16, [1, 3, 3, 1], dict(up=2, padding=(2, 1, 2, 1)), "float32 or bfloat16"),
+]
+
+
+@pytest.mark.parametrize("name, form, taps, kw, refusal", ROUTE_CASES,
+                         ids=[c[0] for c in ROUTE_CASES])
+def test_upfirdn2d_dispatch_on_a_cuda_tensor(monkeypatch, name, form, taps, kw, refusal):
+    """A call on a CUDA tensor (a CPU one that reads as CUDA) launches the
+    kernel inside the envelope, with the composition's output size and the
+    leading pads, and outside it raises the reason, never running the
+    composition."""
+    x = _nchw(_rand((2, 6, 5, 8), seed=23)).contiguous(memory_format=torch.channels_last)
+    if isinstance(form, torch.dtype):
+        x = x.to(form)
+    elif form is not None:
+        x = x.contiguous(memory_format=form)
+    f = None if taps is None else resample.setup_filter(taps, device="cpu",
+                                                        separable=len(taps) > 4)
+    want = resample.upfirdn2d_plain(x, f, **kw)
+    calls = []
+
+    def launch(x, f, up, down, pad0, out_hw, flip_filter, gain):
+        calls.append((up, down, pad0))
+        return want.new_zeros((x.shape[0], x.shape[1], *out_hw))
+
+    def composition(*args, **kwargs):
+        raise AssertionError("a CUDA call ran the composition")
+
+    monkeypatch.setattr(ops.kernels, "upfirdn2d", launch)
+    monkeypatch.setattr(resample, "upfirdn2d_plain", composition)
+    if refusal is not None:
+        with pytest.raises(ValueError, match=refusal):
+            resample.upfirdn2d(x.as_subclass(_OnCuda), f, **kw)
+        assert not calls
+        return
+    got = resample.upfirdn2d(x.as_subclass(_OnCuda), f, **kw)
+    assert got.shape == want.shape and len(calls) == 1
+    pads = resample._parse_padding(kw["padding"])
+    assert calls[0][2] == (pads[0], pads[2])
+
+
+def _envelope(x, f=None, up=(2, 2), down=(1, 1)):
+    fh, fw = resample._filter_size(f)
+    out_hw = resample._output_size(x, fh, fw, up, down, (1, 1, 1, 1))
+    return resample.envelope_refusal(x, f, up, down, out_hw)
+
+
+def _cl(*shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype).contiguous(memory_format=torch.channels_last)
+
+
+F4 = resample.setup_filter([1, 3, 3, 1], device="cpu")
+ENVELOPE_CASES = [    # (id, x, f, up, down, inside)
+    ("f32", _cl(2, 8, 5, 6), F4, (2, 2), (1, 1), True),
+    ("bf16", _cl(2, 8, 5, 6, dtype=torch.bfloat16), F4, (2, 2), (1, 1), True),
+    ("rgb", _cl(2, 3, 5, 6), F4, (2, 2), (1, 1), True),
+    ("f16", _cl(2, 8, 5, 6, dtype=torch.float16), F4, (2, 2), (1, 1), False),
+    ("nchw", torch.zeros(2, 8, 5, 6), F4, (2, 2), (1, 1), False),
+    ("up3", _cl(2, 8, 5, 6), F4, (3, 3), (1, 1), False),
+    ("down (1, 3)", _cl(2, 8, 5, 6), F4, (1, 1), (1, 3), False),
+    ("per axis", _cl(2, 8, 5, 6), F4, (2, 1), (1, 2), True),
+    ("8 taps 1-D", _cl(2, 8, 9, 9), resample.setup_filter(list(range(1, 9)), device="cpu"),
+     (1, 1), (2, 2), True),
+    ("9 taps", _cl(2, 8, 9, 9), torch.ones(9, 9), (1, 1), (1, 1), False),
+    ("no filter", _cl(2, 8, 5, 6), None, (1, 1), (1, 1), True),
+    ("f64 filter", _cl(2, 8, 5, 6), F4.double(), (2, 2), (1, 1), False),
+    ("strided filter", _cl(2, 8, 5, 6), torch.ones(4, 8)[:, ::2], (2, 2), (1, 1), False),
+    ("filter requires grad", _cl(2, 8, 5, 6), F4.clone().requires_grad_(True), (2, 2), (1, 1),
+     False),
+    ("empty", _cl(0, 8, 5, 6), F4, (2, 2), (1, 1), False),
+    ("batch over the grid", _cl(65536, 1, 1, 1), F4, (2, 2), (1, 1), False),
+    ("rows over the grid", _cl(1, 1, 32769, 1), F4, (2, 2), (1, 1), False),
+]
+
+
+@pytest.mark.parametrize("name, x, f, up, down, inside", ENVELOPE_CASES,
+                         ids=[c[0] for c in ENVELOPE_CASES])
+def test_kernel_envelope(name, x, f, up, down, inside):
+    """`envelope_refusal` reads metadata only: it answers for CPU tensors,
+    with a reason for each call outside the envelope."""
+    refusal = _envelope(x, f, up, down)
+    assert (refusal is None) is inside
+    assert inside or (isinstance(refusal, str) and refusal)
 
 
 @pytest.mark.parametrize("in_hw, out_hw", [((3, 5), (7, 4)), ((4, 4), (1, 6)),
