@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's sampling, training, ops, evaluation, serving,
+"""Check the PyTorch port's sampling, training, ops, evaluation, serving,
 import, data-parallel, native-loader, 1024² and chunked-dispatch paths, its
 submodel zoo, its face-swap pairs and StyleGAN2's sampling path once on one
-CUDA card.
+CUDA card, and time each kernel for the kernel table.
 
     python3 chip_smoke.py
+
+It measures no path's rate: the port's img/s, step times and device
+breakdowns come from `python3 benchmark/run.py --workload <cell>`.
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. the card (nvidia-smi name and power limit, torch's device name);
@@ -24,12 +27,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      lrelu_pixel_norm per forward);
   5. the full-width forward with the kernels against the same forward with
      the plain versions, and a small generator on the card against the CPU;
-  6. times on the card: sampling img/s; each kernel's call time (eager
+  6. the kernel table's times on the card: each kernel's call time (eager
      calls) and device time (calls captured in a CUDA graph and replayed)
-     against its plain version, pixel_norm also against F.rms_norm; where
-     the host time of a small pixel_norm call goes (checks, allocation,
-     launch, glue); the fused upscale+conv against conv(upscale2d(x)); peak
-     memory;
+     against its plain version, pixel_norm also against F.rms_norm; and
+     each block's dilated upscale+conv against conv(upscale2d(x)), f32 and
+     bf16;
   7. the backward kernel of lrelu_pixel_norm and the minibatch-stddev kernel
      against their plain versions, f32 and bf16, at the train path's shapes
      and at shapes that reach every branch of both (the backward's vector
@@ -57,12 +59,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      gradient differs most: the step with D's (and G's) leaky ReLUs forced
      to the kernel path's side of 0, and the gradient of the 128² toRGB
      weight split into its pixels' terms beside the flips near them;
- 10. times on the card: the R1 step, the step without R1 and the wgangp
-     step, each in bf16, f32 with TF32 off and f32 with TF32 on; peak
-     memory; the train path's
-     kernels against their plain versions (call and device time; the
-     backward at the three largest epilogue shapes beside its bound, the
-     minibatch-stddev call beside pixel_norm's at the same shape);
+ 10. the kernel table's times of the train path's kernels against their
+     plain versions (call and device time; the backward at the three
+     largest epilogue shapes beside its bound, the minibatch-stddev call
+     beside pixel_norm's at the same shape);
  11. the StyleGAN2-ops path (`pggan_tpu_torch.ops`): the bias_lrelu_gain
      kernel against its plain version (f32 and bf16, the epilogue shapes and
      ragged ones, with and without a bias) and its rule's first and second
@@ -71,7 +71,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      points with the launch counts (1 per leaky-ReLU call, none otherwise)
      and kernel path vs plain path; a small case of every ops function on
      the card against the CPU, grid_sample's second derivatives included;
-     times of the kernel, its plain version and filtered_lrelu;
+     the kernel table's times of the kernel, its plain version and
+     filtered_lrelu;
  12. training from a folder of images through `pggan_tpu_torch.train.main`:
      48 JPEGs of 320x320 in two subdirectories, phase 8's checkpoint resumed
      at full width, batch 16, bf16, with the threaded data pipeline (8
@@ -80,9 +81,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      sample grids, metrics.jsonl and the config snapshot are checked; a
      SIGTERM sent from a step hook checkpoints at the next step boundary and
      returns cleanly, and the resume's first batch equals, byte for byte,
-     the uninterrupted run's at that step; the rates: the pipeline alone
-     (8 worker threads and 1), the trainer's imgs_per_sec on folder and on
-     synthetic data, and whether the host keeps up with the bf16 step;
+     the uninterrupted run's at that step; the same run on synthetic data
+     (metrics.jsonl checked); the pipeline alone with the decode cache
+     filled after four epochs, its batches uint8 on the card;
  13. validation, FID and KID on the training path through
      `pggan_tpu_torch.train.main`: phase 8's checkpoint resumed at full width
      with configs/config_demo256_fid.yaml's evaluation keys (bf16 r1 steps,
@@ -92,10 +93,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      validation batch and per FID fake batch, the fakes' dtype, FID of the
      reals against themselves against that of the fakes, and
      `pggan_tpu_torch.eval_metrics` on the last checkpoint against the
-     in-run metrics; the extractors on the card against the CPU; the times
-     of validation(), of the parts of an FID/KID call and of the steps with
-     the hooks on and off; whether the recipe's `device_data_cache: auto`
-     turned the device data cache on;
+     in-run metrics; the extractors on the card against the CPU; that the
+     recipe's `device_data_cache: auto` turned the device data cache on;
  14. the device data cache on the training path through
      `pggan_tpu_torch.train.main` (`device_data_cache: true`, phase 12's 48
      JPEGs, phase 8's checkpoint, bf16, batch 16): the cache line, every
@@ -103,14 +102,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      8's, the unaugmented batches equal to the host pipeline's byte for
      byte and the augmented ones to the same draws assembled on the CPU
      within one step of 255; SIGTERM and the resume's first batch; the
-     assembly's rates and the trainer's imgs_per_sec over lazy-R1/16 spans
-     with the cache, the host pipeline and synthetic data;
+     assembly alone, its batches uint8 on the card; lazy-R1/16 runs with
+     the cache, the host pipeline and synthetic data, with their loss lines
+     and the launches their graph replays executed;
  15. the serving artifact: `pggan_tpu_torch.demo --export` on phase 4's
      checkpoint, the artifact loaded in a fresh process and sampled at
      batches 1, 3 and 16 against the eager G (f32, TF32 off), 2 and 13
-     launches per forward, a bf16 artifact against the eager bf16 G, an
-     artifact exported on the CPU served on the card, and
-     tools/bench_serving_torch.py in direct and artifact modes;
+     launches per forward, a bf16 artifact against the eager bf16 G, and an
+     artifact exported on the CPU served on the card;
  16. a reference (PyTorch) checkpoint at full width: reference-format
      `G_*.pt` / `D_*.pt` at scale 6 (numpy-seeded weights under the
      reference's key names, one G block without PixelNorm's Sequential
@@ -125,26 +124,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      route (`--use_mGPU` without torchrun), the same run in this process
      with phase 8's launches per step; the data-parallel f32 step against
      the single-process step bit for bit (TF32 off, deterministic cuDNN);
-     the bf16 steps with and without the gradient all-reduce and the
-     all-reduce's own time;
  18. the native image loader, grain and configs/config_1024.yaml: the
      compiler, libjpeg's and libpng's headers and grain on this machine;
      the loader built from pggan_tpu_torch/native/loader.cpp (timed); the
      datasets' backend, native against PIL draws at 256² and 1024² and
      cached, stored and uncached draws against each other, on phase 12's
-     folder and 48 JPEGs of 1024² and 1280²; the pipeline alone, native
-     and PIL, 8 and 1 workers, at 256² (RAM cache) and 1024² (resized
-     store), and the trainer's imgs_per_sec over lazy R1/16 at 256² with
-     the native loader, PIL and synthetic data; `pggan_tpu_torch.train.main`
+     folder and 48 JPEGs of 1024² and 1280²; lazy-R1/16 runs through the
+     trainer at 256² with the native loader, PIL and synthetic data (the
+     loader line, the loss lines, the launches); `pggan_tpu_torch.train.main`
      on config_1024.yaml's keys at full width from the high-resolution
      folder (native loader, resized store) for a few bf16 r1 steps at
      scale 7 (512², batch 32) and 8 (1024², batch 16) with the batches, the
-     launches, the losses and the checkpoints checked; their step times
-     and peak memory with and without R1; lrelu_pixel_norm's forward and
-     backward at [16,1024,1024,16] and [32,512,512,32] against their plain
-     versions with their times and bounds; a torch.profiler capture of the
-     scale-8 step (idle share, top kernels, layout copies); and, where
-     grain imports, a few steps with data_backend_impl: grain;
+     launches, the losses and the checkpoints checked; lrelu_pixel_norm's
+     forward and backward at [16,1024,1024,16] and [32,512,512,32] against
+     their plain versions; and, where grain imports, a few steps with
+     data_backend_impl: grain;
  19. chunked dispatch (`train/graphs.py`): at full width, scale 6, f32 with
      TF32 off and cuDNN's deterministic algorithms, a steps_per_dispatch
      window of 4 replays of the captured step and a lazy-R1 window of 4 (the
@@ -156,11 +150,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      scale 4 (64²) in bf16: the windows of 8 between the loss lines, the
      launches (wrapper calls at capture times replays), finite losses, and a
      run cut by SIGTERM and resumed equal to the uninterrupted one bit for
-     bit; tools/bench_e2e_torch.py at 16², 64² and 256²: every step one a
-     call against windows of 8 graph replays, lazy R1/16 eager against graph
-     replays (the trainer's img/s, the steps' device time, the share outside
-     them, the idle share); config_1024.yaml at 1024² in windows of 2 (the
-     capture's seconds, the peak memory); and phase 17's group of one
+     bit; config_1024.yaml at 1024² in windows of 2 (finite losses, the
+     peak memory); and phase 17's group of one
      through lazy windows with NCCL's all-reduce captured and
      `check_replication_consistency`.
  20. the submodel zoo at its published sizes, batch 16, numpy-seeded weights:
@@ -177,10 +168,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      off) against the CPU's (the whole batch, or the first two samples and
      the last for BiSeNet, e4e and ReconNet); the input gradients through
      LPIPS and through id_loss on ArcFace embeddings, card against CPU, in
-     float64 and in f32; items/s in f32, TF32 and bf16 autocast (the median
-     of five windows and their spread) with TFLOP/s and peak memory; the
-     idle share of a
-     bf16 forward under torch.profiler; and no kernel of this repo launched;
+     float64 and in f32; and no kernel of this repo launched;
  21. face-swap pairs into the zoo: 16 (Xs, Xt, same_person) pairs at 256²
      drawn by `pggan_tpu_torch.data.PairedFaceDataset` (same_prob 0.2) from
      phase 12's folder of 48 JPEGs, its two subdirectories as two roots,
@@ -189,8 +177,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      20's ArcFace (resized to 112² by `models.zoo.interpolate2d`, then
      `losses.gan.id_loss(IRSE(Xs), IRSE(Xt))`) and LPIPS (each pair at
      256²) in f32 with TF32 off, against the same modules' CPU forwards of
-     the same pairs; the host's pairs/s, ArcFace items/s, LPIPS pairs/s and
-     peak memory; and no kernel of this repo launched;
+     the same pairs; and no kernel of this repo launched;
  22. StyleGAN2 config-f (`models/stylegan2.py`): `ops.bias_act(lrelu)`
      through its wrapper at the mapping's [16, 512] and the conv epilogues
      at 4², 64² (f32) and 128², 1024² (bf16), without a clamp and with
@@ -265,12 +252,10 @@ TRAIN_STEPS = 4            # steps of the training slice (phase 8)
 # Kernel launches of one bf16 r1 step at scale 6 (phases 8 and 12).
 STEP_LAUNCHES = {"pixel_norm": 4, "lrelu_pixel_norm": 26, "lrelu_pixel_norm_bwd": 13,
                  "minibatch_stddev_stat": 3, "bias_lrelu_gain": 0, "upfirdn2d": 0}
-# Phase 12: the folder of images, the steps of each run, the step after
-# which SIGTERM arrives (counted from the run's first), and the batches the
-# pipeline alone is timed over after warming its decode cache.
+# Phase 12: the folder of images, the steps of each run and the step after
+# which SIGTERM arrives (counted from the run's first).
 FOLDER_IMAGES, FOLDER_SIDE = 48, 320
 FOLDER_STEPS, SIGTERM_AFTER = 8, 2
-PIPELINE_BATCHES = 24
 # Phase 13: validation, FID and KID on the training path with the
 # evaluation keys of EVAL_CONFIG (the repo's full-width 256² recipe), from
 # a folder of EVAL_IMAGES JPEGs: the 30 % valid split (29 images) holds more
@@ -287,15 +272,15 @@ EVAL_IMAGES, EVAL_STEPS, EVAL_TEST_CYCLE, EVAL_FID_CYCLE = 96, 6, 2, 3
 # (48 JPEGs: 9.4 MB at 256²). CACHE_STEPS steps for the unaugmented
 # runs; FOLDER_STEPS and SIGTERM_AFTER for the augmented one and its cut;
 # the lazy-R1 runs take r1_interval LAZY_R1 with a loss line every LAZY_R1
-# steps, and their imgs_per_sec is read over LAZY_WINDOWS such spans; the
-# assembly alone is timed over ASSEMBLE_BATCHES batches. Augmented batches
+# steps over LAZY_WINDOWS such spans after the first line; the assembly
+# alone makes ASSEMBLE_BATCHES batches. Augmented batches
 # on the card against the same assembly on the CPU: the same f32 ops, the
 # contrast's mean summed in another order, so at most one step of 255
 # (ASSEMBLE_LSB) and rarely that (ASSEMBLE_MEAN). Against the PIL path's
 # batches the distance is printed, not bounded: the PIL path rounds to
 # uint8 between ops and turns the hue through 8-bit HSV, and the JAX
 # package's cache reads the same distance from its PIL path.
-CACHE_STEPS, LAZY_R1, LAZY_WINDOWS, ASSEMBLE_BATCHES = 4, 16, 2, 50
+CACHE_STEPS, LAZY_R1, LAZY_WINDOWS, ASSEMBLE_BATCHES = 4, 16, 2, 3
 # A cycle no run reaches, and not the default 10000 (a key equal to its
 # default does not count as set, and a resume then takes the checkpoint's).
 NEVER = 100003
@@ -341,31 +326,24 @@ EVAL_METRICS_FID_RTOL, EVAL_METRICS_KID_ATOL = 1e-4, 1e-5
 # cached or stored draw against an uncached one: the cache rounds to uint8
 # between the resize and the jitter, at most half a step, which three
 # factors of up to 1.2 scale to under 1 step, so within TIER_LSB after the
-# final rounding. LOADER_DRAWS images a comparison; the pipeline alone over
-# HIRES_RATE_BATCHES batches a resolution; HIRES_STEPS steps a training run;
-# the lrelu_pixel_norm kernels at HIRES_KERNEL_SHAPES, device time from
-# HIRES_DEVICE_CALLS calls a graph (each output is up to 1 GB).
+# final rounding. LOADER_DRAWS images a comparison; HIRES_STEPS steps a
+# training run; the lrelu_pixel_norm kernels at HIRES_KERNEL_SHAPES.
 CONFIG_1024 = os.path.join("configs", "config_1024.yaml")
 HIRES_IMAGES, HIRES_SIDES, HIRES_SCALES = 48, (1024, 1280), (7, 8)
 LOADER_RESIZE_LSB, LOADER_AUG_LSB, LOADER_AUG_TAIL, LOADER_AUG_MEAN = 1, 8, 1e-3, 2.5
 TIER_LSB = 2
 LOADER_DRAWS = 12
-HIRES_RATE_BATCHES = {256: 12, 512: 6, 1024: 4}
 HIRES_STEPS, GRAIN_STEPS = 3, 3
 HIRES_KERNEL_SHAPES = [(16, 1024, 1024, 16), (32, 512, 512, 32)]
-HIRES_DEVICE_CALLS = 5
 # Phase 19: chunked dispatch. Windows of CHUNK_K steps replayed from the
 # captured steps against the same windows' eager steps, from the same state
 # and batches, with the weight average at CHUNK_EMA; the trainer at scale
 # CHUNK_SCALE (64²) with steps_per_dispatch auto (8 there) over
 # CHUNK_RUN_STEPS steps with a loss line every CHUNK_LOSS_CYCLE, cut by a
-# SIGTERM after CHUNK_CUT and resumed; the trainer's rates at RATE_SCALES
-# over RATE_STEPS timed steps (windows of RATE_WINDOW; lazy R1/RATE_LAZY);
-# config_1024.yaml at scale 8 in windows of HIRES_CHUNK.
+# SIGTERM after CHUNK_CUT and resumed; config_1024.yaml at scale 8 in
+# windows of HIRES_CHUNK.
 CHUNK_K, CHUNK_EMA = 4, 0.999
 CHUNK_SCALE, CHUNK_LOSS_CYCLE, CHUNK_RUN_STEPS, CHUNK_CUT = 4, 10, 40, 20
-RATE_SCALES, RATE_WINDOW, RATE_LAZY = (2, 4, 6), 8, 16
-RATE_STEPS = {2: 32, 4: 32, 6: 16}
 HIRES_CHUNK = 2
 # Phase 20: the submodel zoo at its published sizes (ZOO_SIDES), ZOO_BATCH a
 # batch, numpy-seeded weights. The card's f32 forward (TF32 off) against the
@@ -380,26 +358,20 @@ HIRES_CHUNK = 2
 # rounding moved up to 1.7e-3 on an H100; a wrong gradient moves ~1). The
 # face model at the size of the BFM 2009 front face the reference builds
 # (`transferBFM09`): 35,709 vertices, 68 landmarks, a seeded grid of
-# BFM_GRID_COLS columns for its triangles. Rates: after 3 warm-up forwards, ZOO_WINDOWS windows of CUDA
-# events, each of at least ZOO_WINDOW_MS of forwards; the median and the
-# spread of the windows.
+# BFM_GRID_COLS columns for its triangles.
 ZOO_SIDES = {"arcface": 112, "bisenet": 512, "e4e": 256, "reconnet": 224, "lpips": 256,
              "patch": 256}
 ZOO_BATCH = 16
 ZOO_CPU_ROWS = (0, 1, ZOO_BATCH - 1)
 ZOO_CPU_WHOLE = ("arcface", "lpips", "patchgan", "multiscale", "stargan", "latent")
-ZOO_WINDOWS, ZOO_WINDOW_MS = 5, 100.0
 ZOO_CARD_RTOL, ZOO_GRAD_RTOL, ZOO_GRAD32_RTOL = 1e-4, 1e-6, 1e-2
 BFM_VERTICES, BFM_LANDMARKS, BFM_GRID_COLS = 35709, 68, 189
 # Phase 21: PAIRS pairs at PAIR_SIDE² with same_prob PAIR_SAME_PROB, the
-# sample i drawn from RandomState(PAIR_SEED + i); the host's rate over
-# PAIR_RATE_PAIRS pairs with each of PAIR_THREADS; the card against the CPU
+# sample i drawn from RandomState(PAIR_SEED + i), drawn again by a second
+# dataset through each of PAIR_THREADS threads; the card against the CPU
 # within ZOO_CARD_RTOL of the largest value, as phase 20.
 PAIRS, PAIR_SIDE, PAIR_SAME_PROB, PAIR_SEED = 16, 256, 0.2, 2100
-PAIR_RATE_PAIRS, PAIR_THREADS = 64, (1, 8)
-# cuDNN and PyTorch kernels that only move data between layouts (the
-# work hires_pack removed on the TPU): matched in the profile's kernel names.
-LAYOUT_COPY_NAMES = ("copy", "transpose", "nchwToNhwc", "nhwcToNchw")
+PAIR_THREADS = (1, 8)
 
 # One f32 step (TF32 off), kernel path vs plain path (phase 9): bounds on
 # the relative loss difference and on the gradient difference relative to
@@ -464,10 +436,9 @@ ACTIVATIONS = ("linear", "relu", "lrelu", "tanh", "sigmoid", "elu", "selu", "sof
 # Call times of inputs of at most SMALL_NUMEL elements (host-bound
 # launches) are means over SMALL_ITERS calls, not 20.
 SMALL_NUMEL, SMALL_ITERS = BATCH * 4 * 4 * 512, 200
-# H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s off
-# the tensor cores, dense TF32 and bf16 FLOP/s on them.
+# H100 SXM datasheet peaks: HBM bytes/s and f32 FLOP/s off the tensor
+# cores.
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
-TF32_FLOPS, BF16_FLOPS = 495e12, 989e12
 # Phase 22: StyleGAN2 config-f's epilogue shapes (NHWC): the mapping's, the
 # conv outputs at 4² and 64² (float32 blocks) and 128² and 1024² (bf16
 # blocks), the clamp, the inputs' scale (so that a share of each output
@@ -526,10 +497,10 @@ def device_ms(fn, kernels=None, name=None, calls: int = 20, replays: int = 5,
     (after warm-up on a side stream), `replays` replays of it timed with
     CUDA events, so no host work sits between the launches; the best of
     `groups` such timings, after untimed replays for DEVICE_WARM_S (one at
-    a time, so the time is the card's): right after phase 10's full-width
-    step timing, the first ~30-60 ms of the f32 [16,64,64,256] backward's
-    replays ran 15 % slow at unchanged clocks (tools/probe_device_ms.py),
-    which 3 untimed replays did not cover. A
+    a time, so the time is the card's): right after full-width training
+    steps, the first ~30-60 ms of the f32 [16,64,64,256] backward's
+    replays ran 15 % slow at unchanged clocks on an H100, which 3 untimed
+    replays did not cover. A
     wrapper launches on the current stream, which is the capture stream
     while capturing, so its launches are captured. Checks that the launch
     count of `name` moved once per captured call and not during the
@@ -803,31 +774,6 @@ def check_forward(kernels, generator, z, alpha):
           f"|diff| {small_err:.3g} (atol {FORWARD_ATOL})")
 
 
-def time_sampling(kernels, generator, z, alpha, card):
-    """Phase 6a: one forward at batch 16, kernel path and plain path."""
-    for dt in (torch.float32, torch.bfloat16):
-        def kernel_fwd(dt=dt):
-            generator(z, alpha, compute_dtype=dt)
-
-        def plain_fwd(dt=dt):
-            with plain_epilogues(kernels):
-                generator(z, alpha, compute_dtype=dt)
-        plain_ms, kernel_ms = abba_ms(plain_fwd, kernel_fwd, iters=10)
-        torch.cuda.reset_peak_memory_stats()
-        kernel_fwd()
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() / 2 ** 20
-        print(f"[6 times] sampling 256x256 batch {BATCH} {str(dt)[6:]}: kernel "
-              f"path {kernel_ms:.3f} ms/batch = {BATCH / kernel_ms * 1e3:.1f} img/s; "
-              f"plain path {plain_ms:.3f} ms = {BATCH / plain_ms * 1e3:.1f} img/s; "
-              f"peak memory {peak:.0f} MiB ({card})")
-    torch.backends.cudnn.allow_tf32 = True
-    tf32_ms = time_ms(lambda: generator(z, alpha), iters=10)
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"[6 times] sampling f32 with cuDNN TF32 on (PyTorch's default): "
-          f"kernel path {tf32_ms:.3f} ms = {BATCH / tf32_ms * 1e3:.1f} img/s ({card})")
-
-
 def time_kernels(kernels, path_shapes, gen, card):
     """Phase 6b: each kernel against its plain version at pixel_norm's two
     path shapes and the three largest epilogue shapes: the call time (eager
@@ -872,53 +818,8 @@ def time_kernels(kernels, path_shapes, gen, card):
     return times, rms
 
 
-def host_us(fn, calls: int = 2000, loops: int = 5) -> float:
-    """Host time of one call in µs by the host clock: the best of `loops`
-    loops of `calls` calls, each loop then waited for on the card. For a
-    call whose host work outlasts its kernel, this is the call time without
-    the card's timing in the way."""
-    best = float("inf")
-    for _ in range(loops + 1):                   # the first loop warms up
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
-        torch.cuda.synchronize()
-    return best
-
-
-def time_launch_path(kernels, gen, card):
-    """Phase 6c: where the host time of one pixel_norm call at [16,4,4,512]
-    f32 goes (a launch-bound call: its kernel takes ~2 µs), beside
-    F.rms_norm's: the whole call, and of it the checks (`kernel_rows`), the
-    output's allocation and the launch (ctypes into the C entry point and
-    its cudaLaunchKernel); the rest is Python glue. The launch is timed by
-    calling the C entry point directly, outside the wrapper, so it is not
-    counted."""
-    import torch.nn.functional as F
-    from pggan_tpu_torch.ops import _build
-
-    x = nhwc((BATCH, 4, 4, 512), torch.float32, gen)
-    x_rows, y = x.permute(0, 2, 3, 1), torch.empty_like(x)
-    rows, cols = kernels.kernel_rows(x)
-    entry = _build.load_library().pggan_pixel_norm_fwd
-    stream = torch.cuda.current_stream().cuda_stream
-    parts = {"whole call": lambda: kernels.pixel_norm(x),
-             "checks": lambda: kernels.kernel_rows(x),
-             "allocation": lambda: torch.empty_like(x),
-             "launch": lambda: entry(x.data_ptr(), y.data_ptr(), rows, cols, 0, 1e-8,
-                                     stream)}
-    us = {label: host_us(fn) for label, fn in parts.items()}
-    rms_us = host_us(lambda: F.rms_norm(x_rows, [512], eps=1e-8))
-    glue = us["whole call"] - us["checks"] - us["allocation"] - us["launch"]
-    print(f"[6 host] pixel_norm [16, 4, 4, 512] float32, host µs a call (best of 5 loops of "
-          f"2000 calls): {us['whole call']:.2f} = checks {us['checks']:.2f} + allocation "
-          f"{us['allocation']:.2f} + launch (ctypes, C entry point, cudaLaunchKernel) "
-          f"{us['launch']:.2f} + Python glue {glue:.2f}; F.rms_norm {rms_us:.2f} ({card})")
-
-
-def time_block_heads(generator, depths, gen, card):
-    """Phase 6d: each block's conv0, the dilated form against
+def check_block_heads(generator, depths, gen):
+    """Phase 6c: each block's conv0, the dilated form against
     conv(upscale2d(x)). Tolerance f32 1e-3 (TF32 off; sums of up to 4608
     products in another order); bf16 0.25 (the merged taps are rounded to
     bf16 once, the plain form rounds each tap, on outputs up to ~10)."""
@@ -932,19 +833,14 @@ def time_block_heads(generator, depths, gen, card):
         w, b, s = conv0.weight, conv0.bias, conv0.scale
         for dt in (torch.float32, torch.bfloat16):
             x = nhwc((BATCH, res, res, depths[i - 1]), dt, gen)
-
-            def fused():
-                return upscale_conv3x3_dilated(x, w, b, s, compute_dtype=dt)
-
-            def plain():
-                return equalized_conv2d(upscale2d(x), w, b, s, compute_dtype=dt)
-            err = float((fused().float() - plain().float()).abs().max())
+            fused = upscale_conv3x3_dilated(x, w, b, s, compute_dtype=dt)
+            plain = equalized_conv2d(upscale2d(x), w, b, s, compute_dtype=dt)
+            err = float((fused.float() - plain.float()).abs().max())
             check(err < (1e-3 if dt == torch.float32 else 0.25),
                   f"fused block {i} {dt}: |diff| {err}")
-            plain_ms, fused_ms = abba_ms(plain, fused)
-            print(f"[6 times] block {i} conv0 {depths[i - 1]}->{depths[i]} at "
-                  f"{res}->{2 * res} {str(dt)[6:]}: dilated {fused_ms:.4f} ms, "
-                  f"conv(upscale2d) {plain_ms:.4f} ms (max |diff| {err:.3g}) ({card})")
+            print(f"[6 blocks] block {i} conv0 {depths[i - 1]}->{depths[i]} at "
+                  f"{res}->{2 * res} {str(dt)[6:]}: dilated against conv(upscale2d) max "
+                  f"|diff| {err:.3g}")
 
 
 def check_train_kernels(kernels, path_shapes, gen):
@@ -1443,49 +1339,6 @@ def probe_step(step_mod, kernels, equalized, cfg, arrays_g, arrays_d):
         torch.backends.cudnn.deterministic = False
 
 
-def time_train(step_mod, kernels, cfg, arrays_g, arrays_d, gen, card):
-    """Phase 10a: step ms, img/s and peak memory of the R1 step, the step
-    without R1 and the wgangp step, in bf16, f32 with TF32 off and f32 with
-    TF32 on. Returns the bf16 step ms {R1: ms} (R1 True, False, "wgangp")."""
-    bf16_ms = {}
-    batch = torch.randint(0, 256, (BATCH, RES, RES, 3), generator=gen, device=DEVICE,
-                          dtype=torch.uint8)
-    for label, dtype, tf32 in (("bf16", "bfloat16", False),
-                               ("f32 TF32 off", "float32", False),
-                               ("f32 TF32 on", "float32", True)):
-        run_cfg = copy.deepcopy(cfg)
-        run_cfg["compute_dtype"] = dtype
-        torch.backends.cudnn.allow_tf32 = tf32
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        state = train_state(step_mod, run_cfg, arrays_g, arrays_d)
-        wgangp_cfg = copy.deepcopy(run_cfg)
-        wgangp_cfg["loss_mode"] = "wgangp"
-        for r1 in (True, False, "wgangp"):
-            step = (step_mod.make_train_step(wgangp_cfg, SCALE) if r1 == "wgangp" else
-                    step_mod.make_train_step(run_cfg, SCALE, include_r1=r1))
-            for _ in range(2):
-                step(state, batch, ALPHA)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            n = 5
-            t0 = time.perf_counter()
-            for _ in range(n):
-                step(state, batch, ALPHA)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) / n * 1e3
-            if label == "bf16":
-                bf16_ms[r1] = ms
-            peak = torch.cuda.max_memory_allocated() / 2 ** 20
-            kind = {True: "R1", False: "no R1 (lazy-window tail)",
-                    "wgangp": "wgangp (GP + drift)"}[r1]
-            print(f"[10 times] train step {RES}x{RES} batch {BATCH} {label}, {kind}: {ms:.2f} ms = "
-                  f"{BATCH / ms * 1e3:.1f} img/s; peak memory {peak:.0f} MiB "
-                  f"(host clock over {n} steps after 2 warm-up) ({card})")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return bf16_ms
-
-
 def time_train_kernels(kernels, gen, card):
     """Phase 10b: the train path's kernels against their plain versions (no
     one PyTorch call computes either), f32 and bf16: the backward at the
@@ -1870,7 +1723,7 @@ def check_lazy_launches(label, launches, trainer, steps):
 def read_metrics(run_dir, steps):
     """metrics.jsonl of a run: one line per loss_cycle step of `steps`, with
     the JAX trainer's keys (imgs_per_sec from the second line on). Returns
-    the imgs_per_sec values."""
+    the lines."""
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         lines = [json.loads(line) for line in f]
     check([m["step"] for m in lines] == steps, f"metrics.jsonl steps {[m['step'] for m in lines]}")
@@ -1879,44 +1732,37 @@ def read_metrics(run_dir, steps):
         check(set(m) == keys | ({"imgs_per_sec"} if i else set()),
               f"metrics.jsonl keys {sorted(m)}")
         check(all(np.isfinite(v) for v in m.values()), f"metrics.jsonl line {m}")
-    return [m["imgs_per_sec"] for m in lines[1:]]
+    return lines
 
 
-def time_pipeline(images):
+def check_pipeline(images):
     """The pipeline alone at 256², batch 16, 2 batches of prefetch, onto the
-    card, with the decode cache filled: batches/s over PIPELINE_BATCHES
-    batches (the 2 already queued included), with 8 worker threads and with
-    1 (whether the threads scale). Returns {workers: batches/s}."""
+    card, with 8 worker threads and with 1: four epochs fill the decode
+    cache with every image, and the batches are uint8 on the card."""
     from pggan_tpu_torch.data.dataset import ImageFolderDataset, split_dataset
     from pggan_tpu_torch.data.pipeline import DataPipeline
 
     dataset = ImageFolderDataset([images], SCALE, cache_decoded=True)
     indices, _ = split_dataset(len(dataset))
-    rates = {}
     for workers in (8, 1):
         with DataPipeline(dataset, BATCH, indices=indices, num_workers=workers,
                           prefetch_depth=2, seed=0, device=DEVICE) as pipe:
-            if not rates:                   # 4 epochs: every image decoded once
+            if workers == 8:                # 4 epochs: every image decoded once
                 for _ in range(4 * (len(indices) // BATCH)):
                     next(pipe)
                 check(len(dataset._cache) == len(indices),
                       f"{len(dataset._cache)} images cached")
-            else:
-                next(pipe)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(PIPELINE_BATCHES):
-                batch = next(pipe)
-            torch.cuda.synchronize()
-            rates[workers] = PIPELINE_BATCHES / (time.perf_counter() - t0)
+            batch = next(pipe)
         check(batch.device.type == torch.device(DEVICE).type and batch.dtype == torch.uint8,
               "pipeline batch")
-    return rates
+    print(f"[12 pipeline] the pipeline alone, 8 workers and 1: {len(indices)} images in the "
+          f"decode cache after four epochs; batches uint8 on the card")
 
 
-def run_folder_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card, bf16_step_ms):
-    """Phase 12: train from a folder of images through the entry point,
-    interrupt a run with SIGTERM and resume it; then the rates."""
+def run_folder_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp):
+    """Phase 12: train from a folder of images through the entry point (and
+    the same run on synthetic data), interrupt a run with SIGTERM and resume
+    it; then the pipeline alone."""
     from PIL import Image
     from pggan_tpu_torch.config import Config
 
@@ -1957,7 +1803,7 @@ def run_folder_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card, bf16_
     for name in grids:
         with Image.open(os.path.join(run_dir, "imgs", name)) as img:
             check(img.size == grid_size, f"{name}: {img.size}")
-    folder_rates = read_metrics(run_dir, [s for s in range(start, end) if s % 2 == 0])
+    records = read_metrics(run_dir, [s for s in range(start, end) if s % 2 == 0])
     snapshot = Config.from_yaml(os.path.join(run_dir, "config_folder.yaml"))
     check(dict(snapshot) == run_cfg, "config_folder.yaml does not reload to the run's config")
     print(f"[12 folder] pggan_tpu_torch.train.main trained from {FOLDER_IMAGES} JPEGs of "
@@ -1966,14 +1812,13 @@ def run_folder_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card, bf16_
           f"{start}, in {seconds:.2f} s; every batch uint8 [{BATCH},{RES},{RES},3] on "
           f"{batches[0].device}; launches {launches} = {FOLDER_STEPS} steps x phase 8's; "
           f"grids {grids} of {grid_size[0]}x{grid_size[1]}; metrics.jsonl "
-          f"{len(folder_rates) + 1} lines; config_folder.yaml reloads to the run's config")
+          f"{len(records)} lines; config_folder.yaml reloads to the run's config")
 
     # the same steps on synthetic data
-    rc, _, _, _, _, synth_s = folder_run(
-        train_mod, kernels, argv("synthetic", "smoke_init", end, "--data_backend", "synthetic"))
+    rc = folder_run(
+        train_mod, kernels, argv("synthetic", "smoke_init", end, "--data_backend", "synthetic"))[0]
     check(rc == 0, f"synthetic run returned {rc}")
-    synth_rates = read_metrics(os.path.join(tmp, "synthetic"),
-                               [s for s in range(start, end) if s % 2 == 0])
+    read_metrics(os.path.join(tmp, "synthetic"), [s for s in range(start, end) if s % 2 == 0])
 
     # SIGTERM after a step, then the resume
     cut = start + SIGTERM_AFTER
@@ -2001,21 +1846,7 @@ def run_folder_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card, bf16_
           f"return, handler restored; the resume started at {cut + 1} and its first batch "
           f"equals the uninterrupted run's at {cut + 1} byte for byte")
 
-    pipeline_rates = time_pipeline(images)
-    r1_rate, tail_rate = (BATCH / bf16_step_ms[r1] * 1e3 for r1 in (True, False))
-    host_rate = pipeline_rates[8] * BATCH
-    print(f"[12 rates] card: {card}")
-    print(f"[12 rates] data pipeline alone ({RES}x{RES}, batch {BATCH}, prefetch 2, decode "
-          f"cache on, onto the card), over {PIPELINE_BATCHES} batches: 8 workers "
-          f"{pipeline_rates[8]:.2f} batches/s = {host_rate:.1f} img/s; 1 worker "
-          f"{pipeline_rates[1]:.2f} batches/s = {pipeline_rates[1] * BATCH:.1f} img/s")
-    print(f"[12 rates] trainer imgs_per_sec, bf16 r1 steps {start}-{end - 1}: folder data "
-          f"{folder_rates}, synthetic data {synth_rates} (host clock between loss lines; "
-          f"checkpoint and grid steps included)")
-    print(f"[12 rates] host keeps up with the bf16 R1 step ({r1_rate:.1f} img/s, phase 10): "
-          f"{'yes' if host_rate >= r1_rate else 'no'} ({host_rate / r1_rate:.2f}x); with the "
-          f"step without R1 ({tail_rate:.1f} img/s): {'yes' if host_rate >= tail_rate else 'no'}"
-          f" ({host_rate / tail_rate:.2f}x)")
+    check_pipeline(images)
     print(f"[12 folder] phase 12 took {time.perf_counter() - t_phase:.2f} s")
 
 
@@ -2060,8 +1891,8 @@ def check_extractors_on_card(fid_mod, inception_mod, card):
 
 def run_eval_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card):
     """Phase 13: validation, FID and KID through `pggan_tpu_torch.train.main`
-    at full width, then `pggan_tpu_torch.eval_metrics` on its checkpoint, the
-    extractors on the card against the CPU, and the times."""
+    at full width, then `pggan_tpu_torch.eval_metrics` on its checkpoint and
+    the extractors on the card against the CPU."""
     from pggan_tpu_torch import eval_metrics
     from pggan_tpu_torch.config import Config
     from pggan_tpu_torch.metrics import fid as fid_mod, inception as inception_mod
@@ -2080,22 +1911,18 @@ def run_eval_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card):
     end = start + EVAL_STEPS
     while (end - 1) % EVAL_FID_CYCLE:
         end += 1
-    run_keys = dict(keys, save_root=tmp, data_backend="folder", dataset_root_list=[images],
-                    batch_per_gpu=BATCH, num_data_workers=8, prefetch_depth=2, loss_cycle=2,
-                    test_cycle=EVAL_TEST_CYCLE, fid_cycle=EVAL_FID_CYCLE, ckpt_cycle=NEVER)
-    configs = {}
-    for name, over in (("eval", {}), ("noeval", {"use_validation": False, "fid_cycle": 0})):
-        configs[name] = os.path.join(tmp, f"{name}.yaml")
-        with open(configs[name], "w") as f:             # JSON is YAML
-            json.dump(dict(run_keys, **over), f)
+    config = os.path.join(tmp, "eval.yaml")
+    with open(config, "w") as f:                        # JSON is YAML
+        json.dump(dict(keys, save_root=tmp, data_backend="folder", dataset_root_list=[images],
+                       batch_per_gpu=BATCH, num_data_workers=8, prefetch_depth=2,
+                       loss_cycle=2, test_cycle=EVAL_TEST_CYCLE, fid_cycle=EVAL_FID_CYCLE,
+                       ckpt_cycle=NEVER), f)
 
     val_launches, fake_launches, fake_meta = [], [], []
-    times = collections.defaultdict(list)
-    seen = {}
+    seen, trainers = {}, []
     forward, fakes, scores = (trainer_mod.eval_losses,
                               trainer_mod.ProgressiveGANTrainer.fid_fakes,
                               trainer_mod.generative_scores)
-    fit = trainer_mod.ProgressiveGANTrainer.fit
 
     def counted_forward(*args, **kwargs):
         before = dict(kernels.launches)
@@ -2120,37 +1947,13 @@ def run_eval_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card):
         seen["features"] = (f_real, f_fake)
         return scores(f_real, f_fake)
 
-    def timed(name, fn):
-        def call(self, *args, **kwargs):
-            seen["trainer"] = self
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(self, *args, **kwargs)
-            torch.cuda.synchronize()
-            times[name].append(time.perf_counter() - t0)
-            return out
-        return call
-
-    def timed_methods(suffix, names):
-        return [mock.patch.object(trainer_mod.ProgressiveGANTrainer, name, timed(
-            name + suffix, getattr(trainer_mod.ProgressiveGANTrainer, name))) for name in names]
-
-    patches = [mock.patch.object(trainer_mod, "eval_losses", counted_forward),
-               mock.patch.object(trainer_mod.ProgressiveGANTrainer, "fid_fakes", counted_fakes),
-               mock.patch.object(trainer_mod, "generative_scores", recorded_scores)]
-    patches += timed_methods("", ("fit", "save_checkpoint", "validation",
-                                  "compute_generative_metrics"))
-
-    def argv(run):
-        return [run, "--config", configs[run], "--ckpt_id", "smoke_init", "--max_step",
-                str(end), "--device", DEVICE]
-    torch.cuda.reset_peak_memory_stats()
-    with contextlib.ExitStack() as stack:
-        for patch in patches:
-            stack.enter_context(patch)
-        rc, batches, run_cfg, lines, launches, seconds = folder_run(train_mod, kernels,
-                                                                    argv("eval"))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    with mock.patch.object(trainer_mod, "eval_losses", counted_forward), \
+            mock.patch.object(trainer_mod.ProgressiveGANTrainer, "fid_fakes", counted_fakes), \
+            mock.patch.object(trainer_mod, "generative_scores", recorded_scores), \
+            recording_trainers(train_mod, trainers):
+        rc, batches, run_cfg, lines, launches, seconds = folder_run(train_mod, kernels, [
+            "eval", "--config", config, "--ckpt_id", "smoke_init", "--max_step", str(end),
+            "--device", DEVICE])
     for line in lines:
         print(f"[13 eval]   {line}")
     check(rc == 0, f"train main returned {rc}")
@@ -2163,7 +1966,7 @@ def run_eval_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card):
           f"{'on: ' + cache_lines[0] if cache_lines else 'off'}")
     check(keys["device_data_cache"] == "auto" and len(cache_lines) == 1,
           f"expected 'auto' to turn the device data cache on once, got {cache_lines}")
-    trainer = seen["trainer"]
+    trainer = trainers[-1]
     steps = end - start
     check(len(batches) == steps + len(val_launches), f"{len(batches)} batches")
 
@@ -2248,75 +2051,6 @@ def run_eval_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card):
           f"(bound {EVAL_METRICS_FID_RTOL} x fid), |dkid|, |dkid_std| {d_kid:.3g} (bound "
           f"{EVAL_METRICS_KID_ATOL})")
 
-    # the parts of one compute_generative_metrics call, on the run's trainer
-    n = int(keys["fid_samples"])
-    batch = trainer.fid_batch_size(n)
-    t0 = time.perf_counter()
-    reals = list(trainer.fid_reals(n, batch))
-    t_load = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated() / 2 ** 20
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    fake_list = list(fakes(trainer, n, batch))
-    torch.cuda.synchronize()
-    t_sample = time.perf_counter() - t0
-    peak_sample = torch.cuda.max_memory_allocated() / 2 ** 20
-    extractor = trainer._fid_extractor()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    f_r = fid_mod.compute_activations(reals, extractor, max_samples=n)
-    f_f = fid_mod.compute_activations(fake_list, extractor, max_samples=n)
-    t_extract = time.perf_counter() - t0
-    peak_extract = torch.cuda.max_memory_allocated() / 2 ** 20
-    again = max(float(np.abs(a - b).max()) for a, b in ((f_r, f_real), (f_f, f_fake)))
-    t0 = time.perf_counter()
-    stats = [(f.mean(0), np.cov(f, rowvar=False)) for f in (f_r, f_f)]
-    t_cov = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    fid_value = fid_mod.frechet_distance(*stats[0], *stats[1])
-    t_eig = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    trainer_mod.kid_between_features(f_r, f_f)
-    t_kid = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    inception_mod.InceptionV3Features(device=DEVICE)
-    torch.cuda.synchronize()
-    t_build = time.perf_counter() - t0
-    n_img = len(f_r) + len(f_f)
-    print(f"[13 times] card: {card}")
-    print(f"[13 times] validation(): {[round(t * 1e3, 2) for t in times['validation']]} ms a "
-          f"call ({keys['val_batches']} batches of {BATCH}, bf16, host clock with a sync)")
-    print(f"[13 times] compute_generative_metrics(): "
-          f"{[round(t * 1e3, 1) for t in times['compute_generative_metrics']]} ms a call (the "
-          f"first builds InceptionV3: {t_build * 1e3:.1f} ms alone); its parts, one call "
-          f"({n_real} reals, {n} fakes): loading the reals {t_load * 1e3:.1f} ms; sampling the "
-          f"fakes (f32) {t_sample * 1e3:.1f} ms = {n / t_sample:.1f} img/s; InceptionV3 features "
-          f"{t_extract * 1e3:.1f} ms = {n_img / t_extract:.1f} img/s at 299x299 (f32, TF32 "
-          f"off); host statistics: np.cov {t_cov * 1e3:.1f} ms, frechet_distance (eigvals of "
-          f"a 2048x2048 float64 product) {t_eig * 1e3:.1f} ms, KID {t_kid * 1e3:.1f} ms; fid "
-          f"{fid_value:.6g}; features max |diff| from the run's last FID step {again:.3g}; "
-          f"peak memory {peak_sample:.0f} MiB sampling (the {n} fakes kept), {peak_extract:.0f} "
-          f"MiB extracting, from {base:.0f} MiB allocated before")
-
-    # the same steps without the hooks: fit() less its checkpoint write, so
-    # the steps with the hooks and without
-    with contextlib.ExitStack() as stack:
-        for patch in timed_methods("_noeval", ("fit", "save_checkpoint")):
-            stack.enter_context(patch)
-        rc, _, _, _, _, _ = folder_run(train_mod, kernels, argv("noeval"))
-    check(rc == 0, f"the run without hooks returned {rc}")
-    hooks_s = sum(times["validation"]) + sum(times["compute_generative_metrics"])
-    on_s, off_s = (times["fit" + k][-1] - sum(times["save_checkpoint" + k])
-                   for k in ("", "_noeval"))
-    print(f"[13 times] {steps} bf16 r1 steps through fit() from the folder, its final "
-          f"checkpoint write left out ({sum(times['save_checkpoint']):.2f} / "
-          f"{sum(times['save_checkpoint_noeval']):.2f} s): hooks on {on_s:.2f} s = "
-          f"{steps * BATCH / on_s:.2f} img/s, of which the hooks {hooks_s:.2f} s; hooks off "
-          f"{off_s:.2f} s = {steps * BATCH / off_s:.2f} img/s; the steps alone with the hooks "
-          f"on {steps * BATCH / (on_s - hooks_s):.2f} img/s; peak memory of the run with hooks "
-          f"{peak:.0f} MiB ({card})")
     check_extractors_on_card(fid_mod, inception_mod, card)
     print(f"[13 eval] phase 13 took {time.perf_counter() - t_phase:.2f} s")
 
@@ -2337,64 +2071,29 @@ def recording_assembles(calls):
         yield
 
 
-def time_assembly(images, card, bf16_step_ms):
-    """The cache alone at 256², batch 16, augmented: `assemble` calls back to
-    back (host draws and copies included; host clock, one sync), the torch
-    ops of `assemble_batch` alone (device time, a CUDA graph), and the
-    pipeline with the cache delivering batches. Returns img/s of the calls."""
-    from pggan_tpu_torch.data.dataset import ImageFolderDataset, split_dataset
-    from pggan_tpu_torch.data.device_cache import DeviceDataCache, assemble_batch
-    from pggan_tpu_torch.data.pipeline import DataPipeline
+def check_assembly(images):
+    """The cache alone at 256², batch 16, augmented: ASSEMBLE_BATCHES
+    `assemble` calls, their batches uint8 [16,256,256,3] on the card."""
+    from pggan_tpu_torch.data.dataset import ImageFolderDataset
+    from pggan_tpu_torch.data.device_cache import DeviceDataCache
 
-    dataset = ImageFolderDataset([images], SCALE)
-    cache = DeviceDataCache(dataset, DEVICE)
+    cache = DeviceDataCache(ImageFolderDataset([images], SCALE), DEVICE)
     rs = np.random.RandomState(0)
-    draws = [(rs.randint(0, cache.n_images, BATCH), rs.randint(0, 2 ** 31 - 1, BATCH))
-             for _ in range(ASSEMBLE_BATCHES)]
-    for idxs, seeds in draws[:3]:
-        cache.assemble(idxs, seeds)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for idxs, seeds in draws:
-        batch = cache.assemble(idxs, seeds)
-    torch.cuda.synchronize()
-    call_rate = ASSEMBLE_BATCHES * BATCH / (time.perf_counter() - t0)
-    check(batch.dtype == torch.uint8 and tuple(batch.shape) == (BATCH, RES, RES, 3), "batch")
-    params = [t.to(DEVICE) for t in (torch.from_numpy(draws[0][0] % cache.n_images),
-                                      torch.tensor([1, 0] * (BATCH // 2), dtype=torch.int32),
-                                      torch.tensor([[1.1, 0.9, 1.2, 0.005]] * BATCH),
-                                      torch.tensor([[3, 1, 0, 2]] * BATCH, dtype=torch.int32))]
-    op_ms = device_ms(lambda: assemble_batch(cache.data, *params), calls=5)
-    tail_ms = bf16_step_ms[False]
-    indices, _ = split_dataset(len(dataset))
-    with DataPipeline(dataset, BATCH, indices=indices, num_workers=8, prefetch_depth=2, seed=0,
-                      device=DEVICE, assemble_fn=cache.assemble) as pipe:
-        for _ in range(3):
-            next(pipe)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(PIPELINE_BATCHES):
-            next(pipe)
-        torch.cuda.synchronize()
-        pipe_rate = PIPELINE_BATCHES * BATCH / (time.perf_counter() - t0)
-    print(f"[14 rates] device data cache ({cache.n_images} images, {cache.nbytes / 1e6:.1f} MB "
-          f"on the card), {RES}x{RES}, batch {BATCH}, augmented: assemble() back to back "
-          f"{call_rate:.1f} img/s (parameter draws and copies included, host clock); "
-          f"assemble_batch's torch ops alone {op_ms:.4f} ms a batch = "
-          f"{BATCH / op_ms * 1e3:.1f} img/s (device time, CUDA graph) = "
-          f"{100 * op_ms / tail_ms:.2f} % of the bf16 step without R1 ({tail_ms:.2f} ms, "
-          f"phase 10); the pipeline with the cache {pipe_rate:.1f} img/s over "
-          f"{PIPELINE_BATCHES} batches ({card})")
-    return call_rate
+    for _ in range(ASSEMBLE_BATCHES):
+        batch = cache.assemble(rs.randint(0, cache.n_images, BATCH),
+                               rs.randint(0, 2 ** 31 - 1, BATCH))
+        check(batch.dtype == torch.uint8 and tuple(batch.shape) == (BATCH, RES, RES, 3)
+              and batch.device.type == torch.device(DEVICE).type, "batch")
+    print(f"[14 cache] the cache alone ({cache.n_images} images, {cache.nbytes / 1e6:.1f} MB on "
+          f"the card): {ASSEMBLE_BATCHES} augmented batches uint8 [{BATCH},{RES},{RES},3]")
 
 
-def run_cache_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card, bf16_step_ms):
+def run_cache_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp):
     """Phase 14: `device_data_cache: true` through `pggan_tpu_torch.train.main`
     from phase 12's folder: the batches against the host pipeline's (byte
     for byte unaugmented; augmented against the same assembly on the CPU),
-    the launches, SIGTERM and the resume, the assembly's rates and the
-    lazy-R1/16 window's imgs_per_sec with the cache, the host pipeline and
-    synthetic data."""
+    the launches, SIGTERM and the resume, the assembly alone, and lazy-R1/16
+    runs with the cache, the host pipeline and synthetic data."""
     from pggan_tpu_torch.data.dataset import ImageFolderDataset
     from pggan_tpu_torch.data.device_cache import DeviceDataCache
 
@@ -2497,13 +2196,12 @@ def run_cache_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card, bf16_s
           f"return; the resume rebuilt the cache, started at {cut + 1}, and its first batch "
           f"equals the uninterrupted run's at {cut + 1} byte for byte")
 
-    call_rate = time_assembly(images, card, bf16_step_ms)
+    check_assembly(images)
 
-    # lazy R1/16: loss lines every LAZY_R1 steps, imgs_per_sec between them
+    # lazy R1/16: loss lines every LAZY_R1 steps, the launches of the replays
     first = -(-start // LAZY_R1) * LAZY_R1
     end = first + LAZY_R1 * LAZY_WINDOWS + 1
     lazy = {"r1_interval": LAZY_R1, "loss_cycle": LAZY_R1}
-    rates = {}
     for name, over, extra in (("lazy_cache", {"device_data_cache": True}, ()),
                               ("lazy_host", {}, ()),
                               ("lazy_synthetic", {}, ("--data_backend", "synthetic"))):
@@ -2516,19 +2214,10 @@ def run_cache_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card, bf16_s
             lines = [json.loads(line) for line in f]
         check([m["step"] for m in lines] == list(range(first, end, LAZY_R1)),
               f"{name}: loss lines at {[m['step'] for m in lines]}")
-        # the first line's rate counts from fit()'s start: left out
-        rates[name] = [m["imgs_per_sec"] for m in lines[1:]]
-    synth = np.mean(rates["lazy_synthetic"])
-    print(f"[14 rates] card: {card}")
-    print(f"[14 rates] lazy R1/{LAZY_R1} (r1_interval {LAZY_R1}, a loss line every {LAZY_R1} "
+    print(f"[14 lazy] lazy R1/{LAZY_R1} (r1_interval {LAZY_R1}, a loss line every {LAZY_R1} "
           f"steps: per span one logged R1 step and a window of {LAZY_R1 - 1} led by R1), bf16, "
-          f"{RES}x{RES}, batch {BATCH}, trainer imgs_per_sec over steps {first}-{end - 1}: "
-          + "; ".join(f"{name[5:]} {r} (mean {np.mean(r):.1f} = "
-                      f"{100 * (np.mean(r) / synth - 1):+.1f} % of synthetic)"
-                      for name, r in rates.items()))
-    tail = BATCH / bf16_step_ms[False] * 1e3
-    print(f"[14 rates] the cache keeps up with the bf16 step without R1 ({tail:.1f} img/s, "
-          f"phase 10): {'yes' if call_rate >= tail else 'no'} ({call_rate / tail:.2f}x)")
+          f"{RES}x{RES}, batch {BATCH}, steps {first}-{end - 1}, with the cache, the host "
+          f"pipeline and synthetic data: loss lines and launches as expected")
     print(f"[14 cache] phase 14 took {time.perf_counter() - t_phase:.2f} s")
 
 
@@ -2568,8 +2257,8 @@ def artifact_launches(kernels, forward):
 def run_serving(demo, kernels, cfg, depths, tmp, card):
     """Phase 15: `pggan_tpu_torch.demo --export` on phase 4's checkpoint, the
     artifact served in a fresh process at several batches against the eager
-    G, in bf16 in process, exported on the CPU and served on the card, and
-    tools/bench_serving_torch.py in both modes."""
+    G, in bf16 in process, and exported on the CPU and served on the
+    card."""
     from pggan_tpu_torch import export as export_mod
     from pggan_tpu_torch.utils import checkpoint as ckpt_lib
 
@@ -2649,13 +2338,6 @@ def run_serving(demo, kernels, cfg, depths, tmp, card):
     print(f"[15 serve] bf16 artifact (exported in process) vs the eager bf16 G, batch {BATCH}: "
           f"max |diff| {bf16_err:.3g}, within one bf16 step everywhere; launches per forward "
           f"{bf16_launches} (f32 artifact {f32_launches})")
-    with torch.no_grad():
-        direct_ms, artifact_ms = abba_ms(
-            lambda: generator(z, alpha, compute_dtype=torch.bfloat16), bf16_module)
-    print(f"[15 serve] the same process, bf16, batch {BATCH}, in (direct, artifact, artifact, "
-          f"direct) turns: eager G {direct_ms:.3f} ms = {BATCH / direct_ms * 1e3:.1f} img/s, "
-          f"artifact {artifact_ms:.3f} ms = {BATCH / artifact_ms * 1e3:.1f} img/s "
-          f"({direct_ms / artifact_ms:.3f}x; CUDA events over 20 calls each) ({card})")
 
     # exported on the CPU, served on the card
     t0 = time.perf_counter()
@@ -2673,20 +2355,6 @@ def run_serving(demo, kernels, cfg, depths, tmp, card):
           f"load_exported(device={DEVICE!r}): max |diff| {moved_err:.3g} against the eager G "
           f"(bound {SERVE_ATOL}), launches {moved_launches}")
 
-    # the serving bench, both modes
-    rows = {}
-    for mode in ("direct", "artifact"):
-        proc = subprocess.run([sys.executable, os.path.join(REPO, "tools", "bench_serving_torch.py"),
-                               "--mode", mode, "--scale", str(SCALE), "--batch", str(BATCH),
-                               "--compute_dtype", "bfloat16"],
-                              capture_output=True, text=True, timeout=600)
-        check(proc.returncode == 0, f"bench_serving_torch --mode {mode}: {proc.stderr[-3000:]}")
-        rows[mode] = json.loads(proc.stdout.strip().splitlines()[-1])
-        check(rows[mode]["launches_per_forward"] == forward, f"{mode}: {rows[mode]}")
-        print(f"[15 bench] {json.dumps(rows[mode])}")
-    ratio = rows["artifact"]["value"] / rows["direct"]["value"]
-    print(f"[15 bench] artifact / direct device img/s {ratio:.3f}, e2e "
-          f"{rows['artifact']['e2e_img_s'] / rows['direct']['e2e_img_s']:.3f} ({card})")
     print(f"[15 export] phase 15 took {time.perf_counter() - t_phase:.2f} s")
 
 
@@ -2966,60 +2634,6 @@ def compare_dp_step(step_mod, equalized, mesh, cfg, arrays_g, arrays_d, gen):
                                      f"step in {differ[:6]}")
 
 
-def time_data_parallel(step_mod, mesh, cfg, arrays_g, arrays_d, gen, card):
-    """Phase 17e: the bf16 R1 step and the step without R1, with and without
-    the gradient all-reduce (a group of 1), in (single, dp, dp, single)
-    turns; `all_reduce_mean_` alone on G's and D's gradients (CUDA events,
-    20 calls), and its NCCL call alone on the flat bucket. Call inside a
-    joined group."""
-    batch = torch.randint(0, 256, (BATCH, RES, RES, 3), generator=gen, device=DEVICE,
-                          dtype=torch.uint8)
-    run_cfg = copy.deepcopy(cfg)
-    run_cfg["compute_dtype"] = "bfloat16"
-    state = train_state(step_mod, run_cfg, arrays_g, arrays_d)
-    sync = dict(grad_sync=mesh.all_reduce_mean_, rank=mesh.rank(), world_size=mesh.world_size())
-    step_ms = {}
-    for r1 in (True, False):
-        steps = {"single": step_mod.make_train_step(run_cfg, SCALE, include_r1=r1),
-                 "dp": step_mod.make_train_step(run_cfg, SCALE, include_r1=r1, **sync)}
-        seen = collections.defaultdict(list)
-        for label in ("single", "dp", "dp", "single"):
-            for _ in range(2):
-                steps[label](state, batch, ALPHA)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(5):
-                steps[label](state, batch, ALPHA)
-            torch.cuda.synchronize()
-            seen[label].append((time.perf_counter() - t0) / 5 * 1e3)
-        step_ms[r1] = {k: sum(v) / len(v) for k, v in seen.items()}
-        kind = "R1" if r1 else "no R1"
-        single, dp = step_ms[r1]["single"], step_ms[r1]["dp"]
-        print(f"[17 times] bf16 {kind} step {RES}x{RES} batch {BATCH}: single process "
-              f"{single:.2f} ms, data-parallel (world {mesh.world_size()}) {dp:.2f} ms "
-              f"({100 * (dp / single - 1):+.2f} %); host clock over 5 steps after 2 "
-              f"warm-up, turns single, dp, dp, single: "
-              f"{ {k: [round(x, 2) for x in v] for k, v in seen.items()} } ({card})")
-    total_ms, total_bytes = 0.0, 0
-    for name, net in (("G", state.G), ("D", state.D)):
-        grads = [torch.randn(p.shape, generator=gen, device=DEVICE) for p in net.parameters()]
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        nbytes = flat.numel() * 4
-        call = time_ms(lambda: mesh.all_reduce_mean_(grads))  # noqa: B023
-        nccl = time_ms(lambda: torch.distributed.all_reduce(flat))  # noqa: B023
-        total_ms, total_bytes = total_ms + call, total_bytes + nbytes
-        print(f"[17 times] all_reduce_mean_ on {name}'s {len(grads)} gradients "
-              f"({nbytes / 1e6:.1f} MB f32): {call:.4f} ms a call (flat copy, NCCL "
-              f"all-reduce, division, copy back; CUDA events, 20 calls); the NCCL call alone "
-              f"{nccl:.4f} ms ({card})")
-    no_r1 = step_ms[False]["single"]
-    print(f"[17 times] the two all-reduces of a step: {total_ms:.4f} ms for "
-          f"{total_bytes / 1e6:.1f} MB of gradients = {100 * total_ms / no_r1:.2f} % of the "
-          f"{no_r1:.2f} ms step without R1, {100 * total_ms / step_ms[True]['single']:.3f} % "
-          f"of the R1 step ({card})")
-    return step_ms, total_ms
-
-
 def step_launches(scale):
     """Kernel launches of one r1 step at `scale`: phase 8's at scale 6, with
     the G epilogues (two convs a block) counted for `scale`'s blocks."""
@@ -3149,63 +2763,10 @@ def compare_loaders(folders, tmp):
               for res, (w, s) in tiers.items()))
 
 
-def pipeline_rate(dataset, batch, workers, batches):
-    """img/s of the pipeline alone onto the card (2 batches of prefetch)
-    over `batches` batches after the first; checks the batches."""
-    from pggan_tpu_torch.data.dataset import split_dataset
-    from pggan_tpu_torch.data.pipeline import DataPipeline
-
-    indices, _ = split_dataset(len(dataset))
-    with DataPipeline(dataset, batch, indices=indices, num_workers=workers, prefetch_depth=2,
-                      seed=0, device=DEVICE) as pipe:
-        next(pipe)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(batches):
-            out = next(pipe)
-        torch.cuda.synchronize()
-        rate = batches * batch / (time.perf_counter() - t0)
-    res = dataset.resolution
-    check(out.dtype == torch.uint8 and tuple(out.shape) == (batch, res, res, 3)
-          and out.device.type == torch.device(DEVICE).type, f"pipeline batch {out.dtype} {tuple(out.shape)}")
-    return rate
-
-
-def time_loader_pipelines(folders, tmp, card):
-    """[18 rates]: the pipeline alone, native and PIL, 8 and 1 workers, at
-    256² (RAM cache, phase 12's folder) and 1024² (resized store), and
-    native with 8 workers at 512² (resized store). Returns {res: native img/s
-    with 8 workers}."""
-    from pggan_tpu_torch.data.dataset import ImageFolderDataset
-
-    rates, native8 = [], {}
-    for res, scale, batch in ((256, 6, BATCH), (512, 7, 32), (1024, 8, 16)):
-        loaders = ("native", "PIL") if res != 512 else ("native",)
-        for loader in loaders:
-            kw = (dict(cache_decoded=True) if res == 256 else
-                  dict(resized_store=True, store_dir=os.path.join(tmp, f"store_{loader}")))
-            with (pil_only() if loader == "PIL" else contextlib.nullcontext()):
-                ds = ImageFolderDataset([folders[256 if res == 256 else 1024]], scale, **kw)
-            check(ds.backend == loader, f"{res}²: backend {ds.backend}, expected {loader}")
-            if res == 256:
-                for i in range(len(ds)):        # the RAM cache filled, as after an epoch
-                    ds.resized_array(i)
-            for workers in ((8, 1) if res != 512 else (8,)):
-                rate = pipeline_rate(ds, batch, workers, HIRES_RATE_BATCHES[res])
-                if loader == "native" and workers == 8:
-                    native8[res] = rate
-                rates.append(f"{res}² {loader} {workers} worker(s) {rate:.1f} img/s")
-    print(f"[18 rates] card: {card}")
-    print(f"[18 rates] data pipeline alone onto the card (augmented, 2 batches of prefetch; "
-          f"256² batch {BATCH} from the RAM cache, 512² batch 32 and 1024² batch 16 from the "
-          f"resized store): " + "; ".join(rates))
-    return native8
-
-
-def time_loader_trainer(train_mod, kernels, ckpt_lib, cfg, depths, folders, tmp, card):
-    """[18 rates]: the trainer's imgs_per_sec over lazy R1/16 at 256² (phase
-    14's recipe, no device cache) with the native loader, PIL and
-    synthetic data."""
+def run_loader_trainer(train_mod, kernels, ckpt_lib, cfg, depths, folders, tmp):
+    """[18 lazy]: the trainer over lazy R1/16 at 256² (phase 14's recipe, no
+    device cache) with the native loader, PIL and synthetic data: the
+    loader line, the loss lines and the launches."""
     _, _, _, start = train_checkpoint(ckpt_lib, cfg, depths, tmp)
     base = {"save_root": tmp, "data_backend": "folder", "dataset_root_list": [folders[256]],
             "batch_per_gpu": BATCH, "num_data_workers": 8, "prefetch_depth": 2,
@@ -3213,7 +2774,6 @@ def time_loader_trainer(train_mod, kernels, ckpt_lib, cfg, depths, folders, tmp,
             "ckpt_cycle": NEVER}
     first = -(-start // LAZY_R1) * LAZY_R1
     end = first + LAZY_R1 * LAZY_WINDOWS + 1
-    rates = {}
     for name, loader, extra in (("lazy_native", "native loader", ()),
                                 ("lazy_pil", "PIL loader", ()),
                                 ("lazy_synth", None, ("--data_backend", "synthetic"))):
@@ -3231,16 +2791,13 @@ def time_loader_trainer(train_mod, kernels, ckpt_lib, cfg, depths, folders, tmp,
         if loader:
             check(any(f"({loader}" in line for line in lines), f"{name}: no '{loader}' line")
         with open(os.path.join(tmp, name, "metrics.jsonl")) as f:
-            steps_rates = [json.loads(line) for line in f]
-        check([m["step"] for m in steps_rates] == list(range(first, end, LAZY_R1)),
-              f"{name}: loss lines at {[m['step'] for m in steps_rates]}")
-        rates[name[5:]] = [m["imgs_per_sec"] for m in steps_rates[1:]]
-    synth = np.mean(rates["synth"])
-    print(f"[18 rates] lazy R1/{LAZY_R1} through the trainer (phase 14's recipe, no device "
-          f"cache), bf16, {RES}x{RES}, batch {BATCH}, imgs_per_sec over steps {first}-"
-          f"{end - 1}: " + "; ".join(f"{k} {v} (mean {np.mean(v):.1f} = "
-                                     f"{100 * (np.mean(v) / synth - 1):+.1f} % of synthetic)"
-                                     for k, v in rates.items()) + f" ({card})")
+            records = [json.loads(line) for line in f]
+        check([m["step"] for m in records] == list(range(first, end, LAZY_R1)),
+              f"{name}: loss lines at {[m['step'] for m in records]}")
+    print(f"[18 lazy] lazy R1/{LAZY_R1} through the trainer (phase 14's recipe, no device "
+          f"cache), bf16, {RES}x{RES}, batch {BATCH}, steps {first}-{end - 1}, with the "
+          f"native loader, PIL and synthetic data: the loader lines, loss lines and launches "
+          f"as expected")
 
 
 def hires_checkpoint(ckpt_lib, cfg, scale, tmp, run_id):
@@ -3269,8 +2826,7 @@ def hires_checkpoint(ckpt_lib, cfg, scale, tmp, run_id):
 def run_hires_train(train_mod, kernels, ckpt_lib, cfg, folder, tmp):
     """[18 train]: `pggan_tpu_torch.train.main` on config_1024.yaml's keys at
     full width from the high-resolution folder through the native loader
-    and the resized store, HIRES_STEPS bf16 r1 steps at scales 7 and 8.
-    Returns {scale: (G arrays, D arrays)}."""
+    and the resized store, HIRES_STEPS bf16 r1 steps at scales 7 and 8."""
     import yaml
 
     with open(os.path.join(REPO, CONFIG_1024)) as f:
@@ -3281,11 +2837,9 @@ def run_hires_train(train_mod, kernels, ckpt_lib, cfg, folder, tmp):
     config = os.path.join(tmp, "config_1024.yaml")
     with open(config, "w") as f:
         json.dump(keys, f)                          # JSON is YAML
-    arrays = {}
     for scale in HIRES_SCALES:
         res, batch = 4 * 2 ** scale, int(cfg.batch_schedule[scale])
         arrays_g, arrays_d, start = hires_checkpoint(ckpt_lib, cfg, scale, tmp, f"init{scale}")
-        arrays[scale] = (arrays_g, arrays_d)
         run, end = f"hires{scale}", start + HIRES_STEPS
         rc, batches, run_cfg, lines, launches, seconds = folder_run(train_mod, kernels, [
             run, "--config", config, "--ckpt_id", f"init{scale}", "--max_step", str(end),
@@ -3322,87 +2876,18 @@ def run_hires_train(train_mod, kernels, ckpt_lib, cfg, folder, tmp):
               f"on {batches[0].device}; launches {launches} = {HIRES_STEPS} x "
               f"{step_launches(scale)}; losses finite; rank 0's checkpoint at {end} reloads "
               f"with Adam count {HIRES_STEPS}")
-    return arrays
 
 
-def time_hires_steps(step_mod, cfg, arrays, native8, gen, card):
-    """[18 times]: step ms, img/s and peak memory at scales 7 and 8, bf16,
-    with and without R1, and whether the native pipeline keeps up; f32 with
-    TF32 off with R1 at scale 8 where 3.4x the bf16 peak (256²'s ratio,
-    phase 10) fits. Returns the scale-8 bf16 state and batch."""
-    for scale in HIRES_SCALES:
-        res, batch = 4 * 2 ** scale, int(cfg.batch_schedule[scale])
-        run_cfg = copy.deepcopy(cfg)
-        run_cfg.update(batch_per_gpu=batch, compute_dtype="bfloat16")
-        state = train_state(step_mod, run_cfg, *arrays[scale])
-        images = torch.randint(0, 256, (batch, res, res, 3), generator=gen, device=DEVICE,
-                               dtype=torch.uint8)
-        peaks = {}
-        for r1 in (True, False):
-            step = step_mod.make_train_step(run_cfg, scale, include_r1=r1)
-            for _ in range(2):
-                step(state, images, ALPHA)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            n = 4
-            t0 = time.perf_counter()
-            for _ in range(n):
-                step(state, images, ALPHA)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) / n * 1e3
-            peaks[r1] = torch.cuda.max_memory_allocated() / 2 ** 20
-            rate = batch / ms * 1e3
-            print(f"[18 times] config_1024 step {res}x{res} batch {batch} bf16, "
-                  f"{'R1' if r1 else 'no R1'}: {ms:.2f} ms = {rate:.1f} img/s; peak memory "
-                  f"{peaks[r1]:.0f} MiB (host clock over {n} steps after 2 warm-up); the "
-                  f"native pipeline alone {native8[res]:.1f} img/s keeps up: "
-                  f"{'yes' if native8[res] >= rate else 'no'} ({native8[res] / rate:.2f}x) "
-                  f"({card})")
-    f32_mib = 3.4 * peaks[True]
-    free = torch.cuda.mem_get_info()[1] / 2 ** 20
-    if f32_mib < 0.85 * free:
-        f32_cfg = copy.deepcopy(run_cfg)
-        f32_cfg["compute_dtype"] = "float32"
-        del state
-        torch.cuda.empty_cache()
-        f32_state = train_state(step_mod, f32_cfg, *arrays[8])
-        step = step_mod.make_train_step(f32_cfg, 8, include_r1=True)
-        step(f32_state, images, ALPHA)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for _ in range(2):
-            step(f32_state, images, ALPHA)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / 2 * 1e3
-        print(f"[18 times] config_1024 step 1024x1024 batch 16 f32 TF32 off, R1: {ms:.2f} ms "
-              f"= {16 / ms * 1e3:.1f} img/s; peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB (host clock over 2 "
-              f"steps after 1 warm-up; predicted {f32_mib:.0f} MiB) ({card})")
-        del f32_state
-        torch.cuda.empty_cache()
-        state = train_state(step_mod, run_cfg, *arrays[8])
-    else:
-        print(f"[18 times] f32 TF32 off at 1024x1024 not run: 3.4 x the bf16 R1 peak = "
-              f"{f32_mib:.0f} MiB against {free:.0f} MiB on the card")
-    return state, images, run_cfg
-
-
-def time_hires_kernels(kernels, gen, card):
+def check_hires_kernels(kernels, gen):
     """[18 kernels]: lrelu_pixel_norm's forward and backward against their
-    plain versions at HIRES_KERNEL_SHAPES, f32 and bf16: max |diff|, call
-    ms, device ms and the bound. Returns {(name, shape, dtype): (call ms,
-    device ms, plain ms, bound ms)}."""
-    times = {}
+    plain versions at HIRES_KERNEL_SHAPES, f32 and bf16."""
     for shape, dt in itertools.product(HIRES_KERNEL_SHAPES, (torch.float32, torch.bfloat16)):
         x, g = nhwc(shape, dt, gen), nhwc(shape, dt, gen)
-        n, es = x.numel(), x.element_size()
-        for name, kernel, plain, tol, nbytes, flops in (
+        for name, kernel, plain, tol in (
                 ("lrelu_pixel_norm", lambda: kernels.lrelu_pixel_norm(x),
-                 lambda: kernels.lrelu_pixel_norm_plain(x), TOL[dt], 2 * n * es, 4 * n),
+                 lambda: kernels.lrelu_pixel_norm_plain(x), TOL[dt]),
                 ("lrelu_pixel_norm_bwd", lambda: kernels.lrelu_pixel_norm_bwd(x, g),
-                 lambda: kernels.lrelu_pixel_norm_bwd_plain(x, g), BWD_TOL[dt],
-                 3 * n * es, 12 * n)):
+                 lambda: kernels.lrelu_pixel_norm_bwd_plain(x, g), BWD_TOL[dt])):
             with torch.no_grad():
                 got, want = kernel(), plain()
                 torch.cuda.synchronize()
@@ -3410,76 +2895,15 @@ def time_hires_kernels(kernels, gen, card):
                                            msg=lambda m: f"{name} {list(shape)}: {m}")
                 err = float((got.float() - want.float()).abs().max())
                 del got, want
-                plain_ms, kernel_ms = abba_ms(plain, kernel, iters=10)
-                dev = device_ms(kernel, kernels, name, calls=HIRES_DEVICE_CALLS)
-            b_ms, b_by = bound_ms(nbytes, flops)
-            times[(name, shape, dt)] = (kernel_ms, dev, plain_ms, b_ms)
             print(f"[18 kernels] {name} {list(shape)} {str(dt)[6:]}: max |diff| to the plain "
-                  f"version {err:.3g}; kernel call {kernel_ms:.4f} ms, device {dev:.4f} ms "
-                  f"= {100 * b_ms / dev:.0f} % of the bound {b_ms:.4f} ms ({b_by}); plain "
-                  f"call {plain_ms:.4f} ms ({card})")
+                  f"version {err:.3g}")
         del x, g
         torch.cuda.empty_cache()
-    return times
 
 
-def profile_rows(run, steps=2):
-    """`run` profiled over `steps` calls (torch.profiler, CPU and CUDA
-    activities), as tools/profile_torch_step.py does. Returns (wall ms,
-    busy ms, summed kernel ms, [(ms, calls, kernel name)] a call)."""
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-    busy_us, end = 0.0, float("-inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
-        busy_us += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in events:
-        by_name[e.name][0] += e.time_range.elapsed_us()
-        by_name[e.name][1] += 1
-    rows = sorted(((us / 1e3 / steps, count // steps, name)
-                   for name, (us, count) in by_name.items()), reverse=True)
-    return wall_ms, busy_us / 1e3 / steps, sum(r[0] for r in rows), rows
-
-
-def profile_hires_step(step_mod, cfg, state, images, card):
-    """[18 profile]: the scale-8 bf16 step with and without R1 under
-    torch.profiler: idle share, the top 8 kernels, the layout copies."""
-    for r1 in (True, False):
-        step = step_mod.make_train_step(cfg, 8, include_r1=r1)
-        step(state, images, ALPHA)
-        torch.cuda.synchronize()
-        wall, busy, summed, rows = profile_rows(lambda: step(state, images, ALPHA))
-        check(busy > 0 and rows, "the profile saw no device time")
-        copies = [(ms, n, name) for ms, n, name in rows
-                  if any(key.lower() in name.lower() for key in LAYOUT_COPY_NAMES)]
-        copy_ms = sum(ms for ms, _, _ in copies)
-        print(f"[18 profile] config_1024 step 1024x1024 batch {images.shape[0]} bf16 "
-              f"{'with' if r1 else 'without'} R1 ({card}): wall {wall:.2f} ms/step under the "
-              f"profiler; device busy {busy:.2f} ms/step (idle "
-              f"{100 * max(0.0, 1 - busy / wall):.1f} %); kernel time summed {summed:.2f} "
-              f"ms/step; layout copies {copy_ms:.2f} ms = {100 * copy_ms / summed:.1f} % "
-              f"of it in {sum(n for _, n, _ in copies)} launches")
-        for ms, count, name in rows[:8]:
-            print(f"[18 profile]   {ms:9.3f} ms {100 * ms / summed:5.1f} % x{count:<4d} "
-                  f"{name[:110]}")
-        for ms, count, name in copies[:4]:
-            print(f"[18 profile]   copy {ms:9.3f} ms {100 * ms / summed:5.1f} % x{count:<4d} "
-                  f"{name[:100]}")
-
-
-def run_grain_train(train_mod, kernels, ckpt_lib, cfg, depths, folder, tmp, card):
+def run_grain_train(train_mod, kernels, ckpt_lib, cfg, depths, folder, tmp):
     """[18 grain]: GRAIN_STEPS steps with data_backend_impl: grain at 256²
-    from phase 12's folder, the batches on the card, and grain's rate
-    alone."""
-    from pggan_tpu_torch.data.dataset import ImageFolderDataset, split_dataset
+    from phase 12's folder, the batches on the card."""
     from pggan_tpu_torch.data.grain_pipeline import GrainPipeline
 
     _, _, _, start = train_checkpoint(ckpt_lib, cfg, depths, tmp)
@@ -3506,26 +2930,14 @@ def run_grain_train(train_mod, kernels, ckpt_lib, cfg, depths, folder, tmp, card
               and b.device.type == torch.device(DEVICE).type, f"grain batch {b.dtype} {tuple(b.shape)}")
     want = {k: n * GRAIN_STEPS for k, n in STEP_LAUNCHES.items()}
     check(launches == want, f"grain run launches {launches}, expected {want}")
-    dataset = ImageFolderDataset([folder], SCALE, cache_decoded=True)
-    indices, _ = split_dataset(len(dataset))
-    with GrainPipeline(dataset, BATCH, indices=indices, num_workers=8, device=DEVICE) as pipe:
-        for _ in range(len(indices) // BATCH + 1):     # an epoch: the cache filled
-            next(pipe)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(HIRES_RATE_BATCHES[256]):
-            next(pipe)
-        torch.cuda.synchronize()
-        rate = HIRES_RATE_BATCHES[256] * BATCH / (time.perf_counter() - t0)
     print(f"[18 grain] data_backend_impl: grain, {GRAIN_STEPS} bf16 r1 steps at {RES}x{RES} "
           f"batch {BATCH} in {seconds:.2f} s: every batch uint8 on {batches[0].device}, "
-          f"launches {launches}; GrainPipeline alone (8 threads, native loader) "
-          f"{rate:.1f} img/s ({card})")
+          f"launches {launches}")
 
 
-def run_hires_phase(train_mod, kernels, ckpt_lib, step_mod, cfg, depths, tmp, card, gen):
+def run_hires_phase(train_mod, kernels, ckpt_lib, cfg, depths, tmp, gen):
     """Phase 18: the native loader, grain, and config_1024.yaml at scales 7
-    and 8. Returns the [18 kernels] times."""
+    and 8."""
     from pggan_tpu_torch.config import Config
 
     t_phase = time.perf_counter()
@@ -3535,25 +2947,19 @@ def run_hires_phase(train_mod, kernels, ckpt_lib, step_mod, cfg, depths, tmp, ca
     write_image_folder(folders[256])
     write_hires_folder(folders[1024])
     compare_loaders(folders, tmp)
-    native8 = time_loader_pipelines(folders, tmp, card)
-    time_loader_trainer(train_mod, kernels, ckpt_lib, cfg, depths, folders, tmp, card)
+    run_loader_trainer(train_mod, kernels, ckpt_lib, cfg, depths, folders, tmp)
     cfg1024 = Config.from_yaml(os.path.join(REPO, CONFIG_1024))
     check([int(d) for d in cfg1024.depths] == [512, 512, 512, 512, 256, 128, 64, 32, 16]
           and {int(k): int(v) for k, v in cfg1024.batch_schedule.items()} == {7: 32, 8: 16},
           f"{CONFIG_1024}: depths {cfg1024.depths}, batch_schedule {cfg1024.batch_schedule}")
-    arrays = run_hires_train(train_mod, kernels, ckpt_lib, cfg1024, folders[1024], tmp)
-    state, images, run_cfg = time_hires_steps(step_mod, cfg1024, arrays, native8, gen, card)
-    profile_hires_step(step_mod, run_cfg, state, images, card)
-    del state, images
-    torch.cuda.empty_cache()
-    times = time_hires_kernels(kernels, gen, card)
+    run_hires_train(train_mod, kernels, ckpt_lib, cfg1024, folders[1024], tmp)
+    check_hires_kernels(kernels, gen)
     if grain_ok:
-        run_grain_train(train_mod, kernels, ckpt_lib, cfg, depths, folders[256], tmp, card)
+        run_grain_train(train_mod, kernels, ckpt_lib, cfg, depths, folders[256], tmp)
     else:
         print("[18 grain] grain is not installed on this machine: the grain phase did not run "
               "(not a failure caught)")
     print(f"[18 hires] phase 18 took {time.perf_counter() - t_phase:.2f} s")
-    return times
 
 
 # ---- phase 19: chunked dispatch ----------------------------------------------
@@ -3793,47 +3199,11 @@ def run_chunk_train(train_mod, kernels, ckpt_lib, cfg, tmp):
     return trainer._graphs.launches_replayed()
 
 
-def run_rates(card):
-    """[19 rates]: tools/bench_e2e_torch.py in this process at RATE_SCALES,
-    full width (configs.yaml), bf16, batch 16, synthetic data: every step
-    with R1 one step a call against windows of RATE_WINDOW graph replays,
-    and lazy R1/RATE_LAZY eager against graph replays; the trainer's img/s,
-    the device time of each kind of step, the share of the trainer's time
-    outside the steps, and the idle share. Returns the results."""
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    import bench_e2e_torch
-
-    results = []
-    for scale in RATE_SCALES:
-        for label, extra in (("every step, 1 a call", ["--steps_per_dispatch", "1"]),
-                             (f"every step, windows of {RATE_WINDOW} (graphs)",
-                              ["--steps_per_dispatch", str(RATE_WINDOW)]),
-                             (f"lazy R1/{RATE_LAZY}, eager", ["--r1_interval", str(RATE_LAZY),
-                                                               "--eager"]),
-                             (f"lazy R1/{RATE_LAZY}, graphs", ["--r1_interval", str(RATE_LAZY)])):
-            out = io.StringIO()
-            with contextlib.redirect_stdout(out):
-                rc = bench_e2e_torch.main([
-                    "--scale", str(scale), "--batch", str(BATCH), "--steps",
-                    str(RATE_STEPS[scale]), "--warmup", "2", "--profile", "--config",
-                    os.path.join(REPO, "configs.yaml"), "--device", DEVICE, *extra])
-            check(rc == 0, f"bench_e2e_torch at scale {scale}, {label} returned {rc}")
-            result = json.loads(out.getvalue().splitlines()[-1])
-            results.append(dict(result, label=label))
-            res = 4 * 2 ** scale
-            print(f"[19 rates] {res}x{res}, {label}: trainer {result['value']} img/s "
-                  f"({result['step_ms']} ms a step over {result['steps']} steps); steps on "
-                  f"the device {result['device_step_ms']} ms (graph replays) = "
-                  f"{result['steps_ms']} ms a step; outside the steps "
-                  f"{100 * result['outside_share']:.1f} %; device idle "
-                  f"{100 * result['idle_share']:.1f} % ({card})")
-    return results
-
-
 def run_hires_chunk(train_mod, ckpt_lib, tmp, card):
     """[19 hires]: configs/config_1024.yaml at scale 8 (1024², batch 16),
-    full width, bf16, r1 every step, steps_per_dispatch HIRES_CHUNK: the
-    capture's seconds, two windows, and the peak memory."""
+    full width, bf16, r1 every step, steps_per_dispatch HIRES_CHUNK: two
+    windows (the capture and its replays), finite losses, the peak
+    memory."""
     from pggan_tpu_torch.config import Config
 
     hires = Config.from_yaml(os.path.join(REPO, CONFIG_1024))
@@ -3846,21 +3216,18 @@ def run_hires_chunk(train_mod, ckpt_lib, tmp, card):
     try:
         check(trainer.batch_size == 16 and trainer.schedule.scale_index == 8,
               f"batch {trainer.batch_size}, scale {trainer.schedule.scale_index}")
-        t0 = time.perf_counter()
         for _ in range(2):
             trainer.train_chunk(HIRES_CHUNK)
         losses = {k: float(v) for k, v in trainer._last_metrics.items()}
-        seconds = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
         captured = trainer._graphs.captured["step"]
     finally:
         trainer.close()
     check(all(np.isfinite(v) for v in losses.values()), f"losses {losses}")
     print(f"[19 hires] config_1024.yaml at scale 8 (1024x1024), batch 16, bf16, r1 every step, "
-          f"steps_per_dispatch {HIRES_CHUNK}: two windows in {seconds:.2f} s (the first step "
-          f"eager, the capture {captured.seconds:.2f} s, then {captured.replays} replays); "
-          f"losses finite; peak memory {peak:.0f} MiB (eager R1 step: 17456-17721 MiB, "
-          f"phase 18) ({card})")
+          f"steps_per_dispatch {HIRES_CHUNK}: two windows (the first step eager, the capture, "
+          f"then {captured.replays} replays); losses finite; peak memory {peak:.0f} MiB "
+          f"({card})")
 
 
 def run_chunk_data_parallel(train_mod, mesh, tmp):
@@ -3874,7 +3241,7 @@ def run_chunk_data_parallel(train_mod, mesh, tmp):
         mesh.init_distributed(Config({"use_mGPU": True}), DEVICE)
         try:
             trainer = chunk_trainer(train_mod, tmp, "smoke_init", compute_dtype="bfloat16",
-                                    r1_interval=RATE_LAZY)
+                                    r1_interval=LAZY_R1)
             try:
                 check(trainer.distributed, "the trainer joined no process group")
                 for _ in range(2):
@@ -3899,7 +3266,6 @@ def run_chunk_phase(train_mod, kernels, ckpt_lib, mesh, cfg, depths, tmp, card):
     t_phase = time.perf_counter()
     per_replay = run_chunk_parity(train_mod, kernels, ckpt_lib, cfg, depths, tmp)
     replayed = run_chunk_train(train_mod, kernels, ckpt_lib, cfg, tmp)
-    run_rates(card)
     run_hires_chunk(train_mod, ckpt_lib, tmp, card)
     run_chunk_data_parallel(train_mod, mesh, tmp)
     print(f"[19 chunk] phase 19 took {time.perf_counter() - t_phase:.2f} s")
@@ -4040,15 +3406,6 @@ def zoo_forward(net, xs, face=None):
     return zoo_outputs(out)
 
 
-def zoo_windows_ms(fn):
-    """ms a call of `fn`, one a window: 3 warm-up calls, then ZOO_WINDOWS
-    windows of CUDA events, each of as many calls as fill ZOO_WINDOW_MS
-    (from one timed call), sorted."""
-    once = time_ms(fn, iters=1)
-    iters = max(1, math.ceil(ZOO_WINDOW_MS / max(once, 1e-3)))
-    return sorted(time_ms(fn, iters=iters, warmup=0) for _ in range(ZOO_WINDOWS))
-
-
 def rel_err(got, want):
     got, want = got.detach().double().cpu(), want.detach().double().cpu()
     check(got.shape == want.shape, f"shapes {tuple(got.shape)} and {tuple(want.shape)}")
@@ -4069,18 +3426,15 @@ def zoo_mode(mode):
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def run_zoo_phase(kernels, card):
+def run_zoo_phase(kernels):
     """Phase 20: the submodel zoo at published sizes, batch ZOO_BATCH, on the
     card. Returns {"arcface" | "lpips": (card module, CPU module)} in f32
     for phase 21."""
-    from torch.utils.flop_counter import FlopCounterMode
-
     from pggan_tpu_torch.losses import gan
     from pggan_tpu_torch.models import backbones, face3d
 
     t_phase = time.perf_counter()
     before = dict(kernels.launches)
-    held = torch.cuda.memory_allocated()        # earlier phases' tensors
     kept = {}
     bases = bfm_like_bases(20)
     bases["point_buf"] = face3d.build_point_buf(bases["face_buf"], BFM_VERTICES)
@@ -4204,39 +3558,6 @@ def run_zoo_phase(kernels, card):
                   f"beyond 1e-4 of the largest; samples beyond 1e-5 of their norm: "
                   f"{flips or 'none'}")
 
-        # 4. times: items/s in each mode with TFLOP/s (FLOPs of a forward
-        # counted by FlopCounterMode) and peak memory; the idle share of a
-        # bf16 forward under torch.profiler
-        def run():
-            return zoo_forward(module, card_inputs, face)
-
-        with torch.no_grad():
-            with FlopCounterMode(display=False) as counter:
-                run()
-            flops = counter.get_total_flops() / ZOO_BATCH
-            for mode, peak in (("f32", F32_FLOPS), ("tf32", TF32_FLOPS), ("bf16", BF16_FLOPS)):
-                with zoo_mode(mode):
-                    run()
-                    torch.cuda.synchronize()
-                    torch.cuda.reset_peak_memory_stats()
-                    windows = zoo_windows_ms(run)
-                    mib = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
-                ms = windows[len(windows) // 2]
-                tflops = flops * ZOO_BATCH / ms / 1e9
-                print(f"[20 zoo] {name} {mode}: {ms:.3f} ms a batch of {ZOO_BATCH} = "
-                      f"{ZOO_BATCH * 1e3 / ms:.1f} {'pairs' if name == 'lpips' else 'items'}/s "
-                      f"(median of {len(windows)} windows of >= {ZOO_WINDOW_MS:g} ms; "
-                      f"{ZOO_BATCH * 1e3 / windows[-1]:.1f}-{ZOO_BATCH * 1e3 / windows[0]:.1f}); "
-                      f"{tflops:.2f} TFLOP/s = {100e12 * tflops / peak:.1f} % of the {mode} "
-                      f"peak ({flops / 1e9:.3f} GFLOP an item); peak memory {mib:.0f} MiB "
-                      f"above what earlier phases hold ({card})")
-            with zoo_mode("bf16"):
-                wall, busy, _, top = profile_rows(run)
-            check(busy > 0 and top, f"{name}: the profile saw no device time")
-            print(f"[20 zoo] {name} bf16 forward under torch.profiler: wall {wall:.3f} ms, "
-                  f"device busy {busy:.3f} ms (idle {100 * max(0.0, 1 - busy / wall):.1f} %), "
-                  f"{sum(n for _, n, _ in top)} kernels; top: "
-                  + "; ".join(f"{k[:60]} {ms:.3f} ms" for ms, _, k in top[:3]))
         if name in ("arcface", "lpips"):
             kept[name] = (module, cpu)
         del module, cpu
@@ -4251,19 +3572,17 @@ def run_zoo_phase(kernels, card):
 
 def draw_pairs(dataset, count, threads):
     """`count` pairs, pair i from RandomState(PAIR_SEED + i), through a pool
-    of `threads`. Returns (pairs in order, seconds)."""
+    of `threads`. Returns the pairs in order."""
     from concurrent.futures import ThreadPoolExecutor
 
     def one(i):
         return dataset.get(i, np.random.RandomState(PAIR_SEED + i))
 
-    t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=threads) as pool:
-        pairs = list(pool.map(one, range(count)))
-    return pairs, time.perf_counter() - t0
+        return list(pool.map(one, range(count)))
 
 
-def run_pairs_phase(kernels, card, zoo, tmp):
+def run_pairs_phase(kernels, zoo, tmp):
     """Phase 21: PairedFaceDataset's pairs from phase 12's folder into phase
     20's ArcFace and LPIPS on the card, against their CPU forwards."""
     from pggan_tpu_torch.data import PairedFaceDataset
@@ -4279,13 +3598,10 @@ def run_pairs_phase(kernels, card, zoo, tmp):
     dataset = PairedFaceDataset(roots, same_prob=PAIR_SAME_PROB, resolution=PAIR_SIDE)
     check([len(ps) for ps in dataset.per_root] == [FOLDER_IMAGES // 2] * 2,
           f"roots of {[len(ps) for ps in dataset.per_root]} images")
-    pairs, _ = draw_pairs(dataset, PAIRS, 1)
-    rates = {}
+    pairs = draw_pairs(dataset, PAIRS, 1)
     for threads in PAIR_THREADS:            # a second dataset, the same seeds
-        again, seconds = draw_pairs(PairedFaceDataset(roots, same_prob=PAIR_SAME_PROB,
-                                                      resolution=PAIR_SIDE),
-                                    PAIR_RATE_PAIRS, threads)
-        rates[threads] = PAIR_RATE_PAIRS / seconds
+        again = draw_pairs(PairedFaceDataset(roots, same_prob=PAIR_SAME_PROB,
+                                             resolution=PAIR_SIDE), PAIRS, threads)
         for i, (a, b) in enumerate(zip(pairs, again)):
             check(a[2] == b[2] and np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]),
                   f"pair {i} differs on a second draw with the same seed ({threads} threads)")
@@ -4308,8 +3624,6 @@ def run_pairs_phase(kernels, card, zoo, tmp):
         return torch.stack([net(xs[i:i + 1], xt[i:i + 1]) for i in range(xs.shape[0])])
 
     (arc, arc_cpu), (lpips, lpips_cpu) = zoo["arcface"], zoo["lpips"]
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
     with torch.no_grad(), zoo_mode("f32"):
         xs, xt = normalise(xs_u8.to(DEVICE)), normalise(xt_u8.to(DEVICE))
         check(xs.dtype == torch.float32 and -1 <= float(xs.min()) and float(xs.max()) <= 1,
@@ -4321,16 +3635,12 @@ def run_pairs_phase(kernels, card, zoo, tmp):
             lpips_cpu(xs_cpu, xt_cpu), lpips_each(lpips_cpu, xs_cpu, xt_cpu)]
         labels = ("IRSE(Xs)", "IRSE(Xt)", "id_loss", "LPIPS", "LPIPS a pair")
         errs = {k: rel_err(g, w) for k, g, w in zip(labels, got, want)}
-        arc_ms = zoo_windows_ms(lambda: identity(arc, xs, xt))
-        lpips_ms = zoo_windows_ms(lambda: lpips(xs, xt))
-    mib = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
     for k, err in errs.items():
         check(err <= ZOO_CARD_RTOL, f"phase 21 {k}: card against CPU {err:.3g} of the largest "
                                     f"value (tolerance {ZOO_CARD_RTOL})")
     per_pair = got[-1].cpu().tolist()
     check(all(math.isfinite(v) for v in per_pair), "non-finite LPIPS")
     check(dict(kernels.launches) == before, "a kernel of this repo launched in phase 21")
-    arc_med, lp_med = arc_ms[len(arc_ms) // 2], lpips_ms[len(lpips_ms) // 2]
     print(f"[21 pairs] PairedFaceDataset({len(roots)} roots of {FOLDER_IMAGES // 2} JPEGs of "
           f"{FOLDER_SIDE}², same_prob {PAIR_SAME_PROB}, {PAIR_SIDE}²): {PAIRS} pairs, "
           f"same_person {sum(same)} of {PAIRS} ({''.join(map(str, same))}); equal to a second "
@@ -4339,17 +3649,8 @@ def run_pairs_phase(kernels, card, zoo, tmp):
           f"(tolerance {ZOO_CARD_RTOL}): " + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
           + f"; id_loss {float(got[2]):.6f}, LPIPS {float(got[3]):.6f} (pairs "
           f"{min(per_pair):.4f}-{max(per_pair):.4f})")
-    print(f"[21 pairs] host pairs/s: " + ", ".join(
-        f"{rates[t]:.1f} with {t} thread{'s' if t > 1 else ''}" for t in PAIR_THREADS)
-        + f" ({PAIR_RATE_PAIRS} pairs, PIL decode + resize + flip + jitter of two images a "
-          f"pair); ArcFace {2 * PAIRS * 1e3 / arc_med:.1f} items/s (resize to 112² + IRSE-50 "
-          f"on Xs and on Xt + id_loss, {arc_med:.3f} ms for {2 * PAIRS} images, windows "
-          f"{arc_ms[0]:.3f}-{arc_ms[-1]:.3f} ms); LPIPS {PAIRS * 1e3 / lp_med:.1f} pairs/s "
-          f"({lp_med:.3f} ms a batch of {PAIRS}, windows {lpips_ms[0]:.3f}-{lpips_ms[-1]:.3f} "
-          f"ms); peak memory {mib:.0f} MiB above what earlier phases hold; {card}")
     print(f"[21 pairs] no kernel of this repo launched; phase 21 took "
           f"{time.perf_counter() - t_phase:.2f} s")
-
 
 
 # ---- phase 22: StyleGAN2 config-f's clamped epilogues and one forward -------
@@ -4414,10 +3715,8 @@ def run_sg2_forward(kernels, card, gen):
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         modulated.reset_counts()
-        t0 = time.perf_counter()
         img = G(z)
         torch.cuda.synchronize()
-        forward_ms = 1e3 * (time.perf_counter() - t0)
         launches, modconvs = dict(kernels.launches), modulated.counts["modconv"]
         with plain_bias_act(kernels):
             plain = G(z)
@@ -4436,8 +3735,8 @@ def run_sg2_forward(kernels, card, gen):
     print(f"[22 sg2] StyleGAN2 config-f forward [{BATCH}, 512] → {list(img.shape)} (bf16 "
           f"from 128², f32 with TF32 off below): launches {launches}, {modconvs} modulated "
           f"convs; image std {float(img.std()):.3f}, max |x| {scale:.3f}; kernel path vs "
-          f"plain path max |diff| {err:.3g}; one eager forward {forward_ms:.1f} ms; peak "
-          f"memory {gib:.2f} GiB above what earlier phases hold; {card}")
+          f"plain path max |diff| {err:.3g}; peak memory {gib:.2f} GiB above what earlier "
+          f"phases hold; {card}")
     del G, img, plain
     torch.cuda.empty_cache()
     print(f"[22 sg2] phase 22b took {time.perf_counter() - t_phase:.2f} s")
@@ -4780,14 +4079,12 @@ def main() -> int:
     check_forward(kernels, generator, z, alpha)
 
     print(f"[6 times] card: {card}; call time: CUDA events, mean over 20 eager calls "
-          f"({SMALL_ITERS} for inputs of at most {SMALL_NUMEL} elements, 10 for a whole "
-          f"forward) after 3 warm-up, in (plain, kernel, kernel, plain) turns; device "
-          f"time: 20 calls captured in a CUDA graph, 5 replays")
+          f"({SMALL_ITERS} for inputs of at most {SMALL_NUMEL} elements) after 3 warm-up, "
+          f"in (plain, kernel, kernel, plain) turns; device time: 20 calls captured in a "
+          f"CUDA graph, 5 replays")
     with torch.no_grad():
-        time_sampling(kernels, generator, z, alpha, card)
         times, rms = time_kernels(kernels, path_shapes, gen, card)
-        time_launch_path(kernels, gen, card)
-        time_block_heads(generator, depths, gen, card)
+        check_block_heads(generator, depths, gen)
 
     # ---- the training slice ----
     from pggan_tpu_torch import train as train_mod
@@ -4804,7 +4101,6 @@ def main() -> int:
     compare_step(step_mod, kernels, equalized, step_cfg, arrays_g, arrays_d)
     probe_step(step_mod, kernels, equalized, step_cfg, arrays_g, arrays_d)
     print(f"[10 times] card: {card}")
-    bf16_step_ms = time_train(step_mod, kernels, step_cfg, arrays_g, arrays_d, gen, card)
     train_times, _ = time_train_kernels(kernels, gen, card)
 
     # ---- the StyleGAN2-ops path ----
@@ -4819,7 +4115,7 @@ def main() -> int:
 
     # ---- training from a folder of images ----
     with tempfile.TemporaryDirectory(prefix="pggan_smoke_folder_") as tmp:
-        run_folder_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card, bf16_step_ms)
+        run_folder_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp)
 
     # ---- validation, FID and KID on the training path ----
     with tempfile.TemporaryDirectory(prefix="pggan_smoke_eval_") as tmp:
@@ -4827,7 +4123,7 @@ def main() -> int:
 
     # ---- the device data cache on the training path ----
     with tempfile.TemporaryDirectory(prefix="pggan_smoke_cache_") as tmp:
-        run_cache_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp, card, bf16_step_ms)
+        run_cache_train(train_mod, kernels, ckpt_lib, cfg, depths, tmp)
 
     # ---- the serving artifact ----
     with tempfile.TemporaryDirectory(prefix="pggan_smoke_serve_") as tmp:
@@ -4843,13 +4139,12 @@ def main() -> int:
         mesh.init_distributed(Config({"use_mGPU": True}), DEVICE)
         try:
             compare_dp_step(step_mod, equalized, mesh, step_cfg, arrays_g, arrays_d, gen)
-            time_data_parallel(step_mod, mesh, step_cfg, arrays_g, arrays_d, gen, card)
         finally:
             mesh.shutdown()
 
     # ---- the native loader, grain, and config_1024.yaml at 512² and 1024² ----
     with tempfile.TemporaryDirectory(prefix="pggan_smoke_hires_") as tmp:
-        run_hires_phase(train_mod, kernels, ckpt_lib, step_mod, cfg, depths, tmp, card, gen)
+        run_hires_phase(train_mod, kernels, ckpt_lib, cfg, depths, tmp, gen)
 
     # ---- chunked dispatch: windows as CUDA-graph replays ----
     with tempfile.TemporaryDirectory(prefix="pggan_smoke_chunk_") as tmp:
@@ -4861,9 +4156,9 @@ def main() -> int:
          "launches": chunk_launches[name]} for name, n in STEP_LAUNCHES.items() if n]}))
 
     # ---- the submodel zoo at published sizes, and face-swap pairs into it ----
-    zoo = run_zoo_phase(kernels, card)
+    zoo = run_zoo_phase(kernels)
     with tempfile.TemporaryDirectory(prefix="pggan_smoke_pairs_") as tmp:
-        run_pairs_phase(kernels, card, zoo, tmp)
+        run_pairs_phase(kernels, zoo, tmp)
     del zoo
     torch.cuda.empty_cache()
 

@@ -167,7 +167,7 @@ class ProgressiveGANTrainer:
         self._r1_interval = 1
         self._chunk_size = 1
         # windows replay captured steps on a card; the eager steps elsewhere
-        # (tools/bench_e2e_torch.py turns it off to time the eager windows)
+        # (benchmark/drivers/train.py reads it; the dispatch tests set it either way)
         self.use_graphs = graphs.graphed(self.device)
         self._graphs: Optional[graphs.StepGraphs] = None
         self._replicas_checked = False

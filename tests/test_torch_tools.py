@@ -1,13 +1,16 @@
-"""The port's tools on the CPU: `tools/bench_e2e_torch.py --device cpu` (the
-trainer's rate; its device numbers are null there), `tools/bench_pipeline_
-torch.py --json` on a folder that `tools/make_synth_dataset.py` writes (each
-tier and loader), and `tools/train_watchdog_torch.py` with a fake trainer and
-probe, as tests/test_watchdog.py drives the JAX package's watchdog: it
-restarts the trainer after a stall with `--ckpt_id` and gives up after
-`--max_restarts`. No JAX program is compiled; the watchdog and its children
-import no framework.
+"""The port's tools on the CPU: `tools/bench_pipeline_torch.py --json` on a
+folder that `tools/make_synth_dataset.py` writes (each tier and loader),
+`tools/train_watchdog_torch.py` with a fake trainer and probe, as
+tests/test_watchdog.py drives the JAX package's watchdog: it restarts the
+trainer after a stall with `--ckpt_id` and gives up after `--max_restarts`;
+and `chip_smoke.py`, which runs only on a card, imported here so that every
+name its phases call, and every name `tools/time_row_kernels.py` reads of
+it, is checked to exist. No JAX program is compiled; the watchdog and its
+children import no framework.
 """
 
+import ast
+import builtins
 import importlib.util
 import json
 import os
@@ -22,30 +25,69 @@ TOOLS = os.path.join(REPO, "tools")
 WATCHDOG = os.path.join(TOOLS, "train_watchdog_torch.py")
 
 
-def _tool(name):
-    spec = importlib.util.spec_from_file_location(name, os.path.join(TOOLS, f"{name}.py"))
+def _load(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
 
 
-@pytest.mark.parametrize("extra, k, dispatch", [
-    ([], 1, "eager"), (["--steps_per_dispatch", "2"], 2, "eager"),
-    (["--r1_interval", "2"], 1, "eager")], ids=["single", "spd2", "lazy2"])
-def test_bench_e2e_torch_on_the_cpu(tmp_path, capsys, extra, k, dispatch):
-    """Scale 1 (8×8) at narrow widths, 2 timed steps: one JSON line with the
-    trainer's rate; the device numbers are null (not measured) on the CPU."""
-    config = tmp_path / "tiny.yaml"
-    config.write_text("latent_dim: 16\ndepths: [16, 8]\nnum_data_workers: 2\n")
-    rc = _tool("bench_e2e_torch").main([
-        "--device", "cpu", "--scale", "1", "--batch", "4", "--steps", "2", "--warmup", "1",
-        "--config", str(config), *extra])
-    assert rc == 0
-    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert result["device"] == "cpu" and result["scale"] == 1 and result["batch"] == 4
-    assert result["steps_per_dispatch"] == k and result["dispatch"] == dispatch
-    assert result["value"] > 0 and result["step_ms"] > 0 and result["steps"] >= 2
-    assert result["device_step_ms"] is result["outside_share"] is result["idle_share"] is None
+def _tool(name):
+    return _load(name, os.path.join(TOOLS, f"{name}.py"))
+
+
+def _bound_names(function):
+    """Every name bound inside `function`: its arguments, assignments, loop
+    and `with` targets, nested functions and classes, imports and except
+    names, at any depth."""
+    names = set()
+    for node in ast.walk(function):
+        if isinstance(node, ast.arg):
+            names.add(node.arg)
+        elif isinstance(node, ast.Name) and isinstance(node.ctx, ast.Store):
+            names.add(node.id)
+        elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((alias.asname or alias.name).split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ExceptHandler) and node.name:
+            names.add(node.name)
+    return names
+
+
+def test_chip_smoke_names_resolve():
+    """chip_smoke.py imports on the CPU (its top level needs no card); every
+    name called in each of its functions, `main` and the `run_*` phases
+    among them, is bound in that function, defined in the module or a
+    builtin; and the names `tools/time_row_kernels.py` reads of it exist.
+    A phase left calling a deleted helper would otherwise fail only on the
+    card."""
+    path = os.path.join(REPO, "chip_smoke.py")
+    smoke = _load("chip_smoke", path)
+    tree = ast.parse(open(path).read(), filename=path)
+    functions = [node for node in tree.body if isinstance(node, ast.FunctionDef)]
+    assert {"main", "run_train", "run_chunk_phase", "run_upfirdn_phase"} <= {
+        f.name for f in functions}
+    known = set(vars(smoke)) | set(dir(builtins))
+    missing = []
+    for function in functions:
+        local = _bound_names(function)
+        for node in ast.walk(function):
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+                    and node.func.id not in local | known):
+                missing.append(f"{function.name}: {node.func.id} (line {node.lineno})")
+    assert missing == []
+
+    # time_row_kernels reads these of `smoke = _chip_smoke()` and of
+    # `_chip_smoke()` itself
+    tool = ast.parse(open(os.path.join(TOOLS, "time_row_kernels.py")).read())
+    read = {node.attr for node in ast.walk(tool) if isinstance(node, ast.Attribute) and (
+        (isinstance(node.value, ast.Name) and node.value.id == "smoke")
+        or (isinstance(node.value, ast.Call) and isinstance(node.value.func, ast.Name)
+            and node.value.func.id == "_chip_smoke"))}
+    assert {"time_kernels", "time_train_kernels", "epilogue_shapes", "card_line", "BATCH",
+            "SCALE"} <= read
+    assert sorted(name for name in read if not hasattr(smoke, name)) == []
 
 
 @pytest.fixture(scope="module")
