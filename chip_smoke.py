@@ -181,11 +181,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
  22. StyleGAN2 config-f (`models/stylegan2.py`): `ops.bias_act(lrelu)`
      through its wrapper at the mapping's [16, 512] and the conv epilogues
      at 4², 64² (f32) and 128², 1024² (bf16), without a clamp and with
-     ±256, against `bias_lrelu_gain_plain` bit for bit, one launch a call;
-     then one 1024² forward at batch 16 with the counts set to 0 just
-     before: 25 bias_lrelu_gain launches, 16 upfirdn2d launches, 26
-     modulated convs, a finite image, the plain version's forward beside
-     it, and the peak memory;
+     ±256, and the one-pass modulated-conv epilogue
+     (`kernels.modconv_epilogue`: demodulation, noise, bias, lrelu, clamp)
+     at the four conv shapes, against `bias_lrelu_gain_plain` bit for bit,
+     one launch a call, with the path each took; then one 1024² forward at
+     batch 16 with the counts set to 0 just before: 25 bias_lrelu_gain
+     launches, 16 upfirdn2d launches, 26 modulated convs of which 17 took
+     the one pass, a finite image, the plain version's forward beside it,
+     and the peak memory; the one pass timed at [16, 64, 1024, 1024] bf16
+     and [16, 512, 64, 64] f32 (call and device ms against the plain
+     version, the two passes it replaced and the bytes' bound);
  23. the upfirdn2d kernel (`csrc/upfirdn2d.cu`): one config-f forward at
      batch 16 with the counts set to 0 (16 launches) recording each call's
      shape, dtype and pads; at each of those calls, fresh inputs through
@@ -442,10 +447,12 @@ HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
 # Phase 22: StyleGAN2 config-f's epilogue shapes (NHWC): the mapping's, the
 # conv outputs at 4² and 64² (float32 blocks) and 128² and 1024² (bf16
 # blocks), the clamp, the inputs' scale (so that a share of each output
-# clamps) and the seed of its weights and inputs.
+# clamps) and the seed of its weights and inputs; the one-pass epilogue's
+# timed calls (NHWC, dtype).
 SG2_EPILOGUES = [(BATCH, 512), (BATCH, 4, 4, 512), (BATCH, 64, 64, 512),
                  (BATCH, 128, 128, 512), (BATCH, 1024, 1024, 64)]
 SG2_CLAMP, SG2_SCALE, SG2_SEED = 256.0, 300.0, 22
+SG2_TIMED = [((BATCH, 1024, 1024, 64), torch.bfloat16), ((BATCH, 64, 64, 512), torch.float32)]
 # FIR upsamples of a config-f forward: conv0's and the RGB skip's in each of
 # the blocks 8² to 1024².
 SG2_UPSAMPLES = 16
@@ -1382,11 +1389,21 @@ def time_train_kernels(kernels, gen, card):
     return times, pixel_norm_calls
 
 
+def plain_modconv_epilogue(kernels):
+    """`kernels.modconv_epilogue` with the plain version in place of the
+    kernel (same arguments)."""
+    def plain(x, d, noise, b, slope=0.2, gain=math.sqrt(2.0), clamp=None):
+        return kernels.bias_lrelu_gain_plain(x, b, slope, gain, 1, clamp, d=d, noise=noise)
+    return plain
+
+
 @contextlib.contextmanager
 def plain_bias_act(kernels):
-    """Route bias_act's leaky ReLU (and so filtered_lrelu's) to the plain
-    version of bias_lrelu_gain, for comparison and timing only."""
-    with mock.patch.object(kernels, "bias_lrelu_gain", kernels.bias_lrelu_gain_plain):
+    """Route bias_act's leaky ReLU (and so filtered_lrelu's) and StyleGAN2's
+    one-pass conv epilogue to the plain version of bias_lrelu_gain, for
+    comparison and timing only."""
+    with mock.patch.object(kernels, "bias_lrelu_gain", kernels.bias_lrelu_gain_plain), \
+            mock.patch.object(kernels, "modconv_epilogue", plain_modconv_epilogue(kernels)):
         yield
 
 
@@ -3692,16 +3709,102 @@ def check_sg2_epilogues(kernels, ops, gen):
           f"equals bias_lrelu_gain_plain bit for bit (max |diff| {worst:.3g}); one launch a "
           f"call; {min(clamped):.1f}-{max(clamped):.1f} % of each clamped output at ±"
           f"{SG2_CLAMP}")
+    return max(worst, check_sg2_one_pass(kernels, gen))
+
+
+def check_sg2_one_pass(kernels, gen):
+    """Phase 22a: `kernels.modconv_epilogue` (demodulation d [B, C] f32,
+    noise [H, W] f32, bias, lrelu·√2, clamp) at config-f's four conv-output
+    shapes of SG2_EPILOGUES, f32 and bf16, an f32 bias and one in x's
+    dtype, against `bias_lrelu_gain_plain` with d and noise, bit for bit
+    (both round each product and sum on its own), one launch a call, every
+    call on the 16-byte vector path. Returns the largest |diff|."""
+    worst, calls, plans = 0.0, 0, set()
+    with torch.no_grad():
+        for shape, dt in itertools.product(SG2_EPILOGUES[1:], TOL):
+            x = nhwc(shape, dt, gen) * SG2_SCALE
+            d = torch.rand((shape[0], shape[-1]), generator=gen, device=DEVICE) + 0.5
+            noise = torch.randn(shape[1:3], generator=gen, device=DEVICE)
+            b32 = torch.randn((shape[-1],), generator=gen, device=DEVICE)
+            for b in [b32, b32.to(dt)] if dt != torch.float32 else [b32]:
+                plans.add(kernels.bias_lrelu_gain_plan(x, b, d))
+                kernels.reset_launch_counts()
+                got = kernels.modconv_epilogue(x, d, noise, b, 0.2, math.sqrt(2.0), SG2_CLAMP)
+                launches = kernels.launches["bias_lrelu_gain"]
+                want = kernels.bias_lrelu_gain_plain(x, b, 0.2, math.sqrt(2.0), 1, SG2_CLAMP,
+                                                     d=d, noise=noise)
+                torch.cuda.synchronize()
+                check(launches == 1, f"modconv_epilogue {shape} {dt}: {launches} launches")
+                check(got.dtype == dt and got.stride() == x.stride(),
+                      f"modconv_epilogue {shape}: layout")
+                torch.testing.assert_close(got, want, rtol=0, atol=0, msg=lambda m: (
+                    f"modconv_epilogue {shape} {dt} b {b.dtype}: {m}"))
+                worst = max(worst, float((got.float() - want.float()).abs().max()))
+                calls += 1
+                del got, want
+            del x
+    check(plans == {4, 8}, f"modconv_epilogue values a load {sorted(plans)}, expected 4 (f32) "
+                           f"and 8 (bf16): the vector path")
+    print(f"[22 sg2] modconv_epilogue (x·d + noise + b, lrelu·√2, clamp {SG2_CLAMP}), "
+          f"{calls} calls at {[list(s) for s in SG2_EPILOGUES[1:]]} (NHWC), f32 and bf16 x, "
+          f"x-dtype and f32 biases: equals bias_lrelu_gain_plain with d and noise bit for bit "
+          f"(max |diff| {worst:.3g}); one launch a call; the vector path (values a load "
+          f"{sorted(plans)})")
     return worst
+
+
+def time_sg2_epilogue(kernels, card, gen):
+    """Phase 22c: the one-pass epilogue at SG2_TIMED, against the plain
+    version and the two passes it replaced (d and noise rounded to x's
+    dtype, `addcmul`, then the bias-act kernel with the bias in x's dtype):
+    call times in (plain, one pass, one pass, plain) turns, device times of
+    the one pass and of the two passes (CUDA graphs), and the bound: x read
+    once, y written once, d, noise and the bias read once. Returns {dtype:
+    (one-pass call ms, device ms, plain call ms, two-pass device ms, bytes,
+    shape)}."""
+    times = {}
+    with torch.no_grad():
+        for shape, dt in SG2_TIMED:
+            x = nhwc(shape, dt, gen) * SG2_SCALE
+            d = torch.rand((shape[0], shape[-1]), generator=gen, device=DEVICE) + 0.5
+            noise = torch.randn(shape[1:3], generator=gen, device=DEVICE)
+            b = torch.randn((shape[-1],), generator=gen, device=DEVICE)
+            d_dt, noise_dt, b_dt = d.to(dt).view(*d.shape, 1, 1), noise.to(dt), b.to(dt)
+
+            def one_pass():
+                return kernels.modconv_epilogue(x, d, noise, b, 0.2, math.sqrt(2.0), SG2_CLAMP)
+
+            def plain():
+                return kernels.bias_lrelu_gain_plain(x, b, 0.2, math.sqrt(2.0), 1, SG2_CLAMP,
+                                                     d=d, noise=noise)
+
+            def two_passes():
+                return kernels.bias_lrelu_gain(torch.addcmul(noise_dt, x, d_dt), b_dt, 0.2,
+                                               math.sqrt(2.0), 1, SG2_CLAMP)
+            plain_ms, call_ms = abba_ms(plain, one_pass, iters=10)
+            dev_ms = device_ms(one_pass, kernels, "bias_lrelu_gain")
+            two_ms = device_ms(two_passes, kernels, "bias_lrelu_gain")
+            nbytes = (2 * x.numel() * x.element_size()
+                      + 4 * (d.numel() + noise.numel() + b.numel()))
+            b_ms, _ = bound_ms(nbytes, 0)
+            times[dt] = (call_ms, dev_ms, plain_ms, two_ms, nbytes, shape)
+            print(f"[22 times] modconv_epilogue {list(shape)} (NHWC) {str(dt)[6:]}: one pass "
+                  f"call {call_ms:.4f} ms, device {dev_ms:.4f} ms = {100 * b_ms / dev_ms:.1f} % "
+                  f"of its bound {b_ms:.4f} ms ({nbytes / 1e9:.3f} GB); the two passes it "
+                  f"replaced (addcmul + bias_lrelu_gain) device {two_ms:.4f} ms; plain call "
+                  f"{plain_ms:.4f} ms ({card})")
+            del x, d_dt, noise_dt
+            torch.cuda.empty_cache()
+    return times
 
 
 def run_sg2_forward(kernels, card, gen):
     """Phase 22b: one StyleGAN2 config-f forward at 1024² (bf16 blocks from
     128², float32 below), batch 16, every count set to 0 just before: 25
-    bias_lrelu_gain launches (8 mapping, 17 synthesis; the 9 toRGBs are
-    linear), 16 upfirdn2d launches and 26 modulated convs; the image
-    finite; the same forward with
-    the plain version of the kernel. Returns the launches."""
+    bias_lrelu_gain launches (8 mapping, 17 one-pass synthesis epilogues;
+    the 9 toRGBs are linear), 16 upfirdn2d launches and 26 modulated convs,
+    17 of them with the one-pass epilogue; the image finite; the same
+    forward with the plain version of the kernel. Returns the launches."""
     from pggan_tpu_torch.models.stylegan2 import StyleGAN2Generator
     from pggan_tpu_torch.ops import modulated
 
@@ -3717,14 +3820,15 @@ def run_sg2_forward(kernels, card, gen):
         modulated.reset_counts()
         img = G(z)
         torch.cuda.synchronize()
-        launches, modconvs = dict(kernels.launches), modulated.counts["modconv"]
+        launches, modconvs = dict(kernels.launches), dict(modulated.counts)
         with plain_bias_act(kernels):
             plain = G(z)
     gib = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
     want = dict.fromkeys(launches, 0)
     want.update(bias_lrelu_gain=25, upfirdn2d=SG2_UPSAMPLES)
     check(launches == want, f"StyleGAN2 forward launches {launches}, expected {want}")
-    check(modconvs == 26, f"{modconvs} modulated convs a forward, expected 26")
+    check(modconvs == {"modconv": 26, "fused_epilogue": 17},
+          f"modulated convs a forward {modconvs}, expected 26 and 17 one-pass epilogues")
     check(img.shape == (BATCH, 1024, 1024, 3) and img.dtype == torch.float32,
           f"image {tuple(img.shape)} {img.dtype}")
     check(bool(torch.isfinite(img).all()), "the StyleGAN2 image is not finite")
@@ -3733,8 +3837,8 @@ def run_sg2_forward(kernels, card, gen):
     # algorithm between two forwards could move the rest.
     check(err <= 1e-2 * scale, f"kernel path vs plain path |diff| {err:.3g} of {scale:.3g}")
     print(f"[22 sg2] StyleGAN2 config-f forward [{BATCH}, 512] → {list(img.shape)} (bf16 "
-          f"from 128², f32 with TF32 off below): launches {launches}, {modconvs} modulated "
-          f"convs; image std {float(img.std()):.3f}, max |x| {scale:.3f}; kernel path vs "
+          f"from 128², f32 with TF32 off below): launches {launches}, modulated convs "
+          f"{modconvs}; image std {float(img.std()):.3f}, max |x| {scale:.3f}; kernel path vs "
           f"plain path max |diff| {err:.3g}; peak memory {gib:.2f} GiB above what earlier "
           f"phases hold; {card}")
     del G, img, plain
@@ -3744,13 +3848,15 @@ def run_sg2_forward(kernels, card, gen):
 
 
 def run_sg2_phase(kernels, card):
-    """Phase 22: StyleGAN2's path (22a, 22b). Returns (max |diff|, launches)."""
+    """Phase 22: StyleGAN2's path (22a-c). Returns (max |diff|, launches,
+    the one pass's times)."""
     from pggan_tpu_torch import ops
 
     gen = torch.Generator(device=DEVICE).manual_seed(SG2_SEED)
     worst = check_sg2_epilogues(kernels, ops, gen)
     torch.cuda.empty_cache()
-    return worst, run_sg2_forward(kernels, card, gen)
+    launches = run_sg2_forward(kernels, card, gen)
+    return worst, launches, time_sg2_epilogue(kernels, card, gen)
 
 
 # ---- phase 23: the upfirdn2d kernel ------------------------------------------
@@ -4111,7 +4217,7 @@ def main() -> int:
     run_ops_path(kernels, ops, gen)
     check_ops_on_card(ops)
     print(f"[11 times] card: {card}")
-    ops_times = time_ops(kernels, ops, gen, card)
+    time_ops(kernels, ops, gen, card)
 
     # ---- training from a folder of images ----
     with tempfile.TemporaryDirectory(prefix="pggan_smoke_folder_") as tmp:
@@ -4162,22 +4268,25 @@ def main() -> int:
     del zoo
     torch.cuda.empty_cache()
 
-    # ---- StyleGAN2 config-f: its clamped epilogues and one forward ----
-    _, sg2_launches = run_sg2_phase(kernels, card)
+    # ---- StyleGAN2 config-f: its clamped epilogues, one forward, the one pass ----
+    _, sg2_launches, sg2_times = run_sg2_phase(kernels, card)
 
     # ---- the upfirdn2d kernel on StyleGAN2's path and the ops layer's ----
     (fir_launches, (fir_err, fir_ulps), fir_times, fir_lib_ms, fir_shape,
      fir_bytes) = run_upfirdn_phase(kernels, card)
     max_err["upfirdn2d"] = {torch.float32: fir_err}
 
-    # Every kernel of the four paths at its largest f32 shape on them;
-    # `launches` is the training run's count (the demo's is checked in
-    # phase 4), and bias_lrelu_gain's a StyleGAN2 forward's (phase 22). `ms` is the
-    # call time, `device_ms` the device time in a CUDA graph. Bounds: each
-    # input read once and each output written once at 3.35 TB/s, against a
-    # few f32 operations per element at 67 TFLOP/s.
+    # Every kernel of the four paths at its largest f32 shape on them, but
+    # bias_lrelu_gain and upfirdn2d at their largest StyleGAN2 call in bf16
+    # (phases 22c and 23); `launches` is the training run's count (the
+    # demo's is checked in phase 4), and bias_lrelu_gain's a StyleGAN2
+    # forward's (phase 22). `ms` is the call time, `device_ms` the device
+    # time in a CUDA graph. Bounds: each input read once and each output
+    # written once at 3.35 TB/s, against a few f32 operations per element at
+    # 67 TFLOP/s.
     rows, big = (BATCH, 4, 4, 512), (BATCH, 256, 256, 64)
     n_rows, n_big = int(np.prod(rows)), int(np.prod(big))
+    epi = sg2_times[torch.bfloat16]
     entries = [
         ("pixel_norm", "norm_kernels.cu", ":57", rows,
          times[("pixel_norm", rows, torch.float32)], 2 * n_rows * 4, 3 * n_rows,
@@ -4190,9 +4299,8 @@ def main() -> int:
         ("minibatch_stddev_stat", "mb_stddev.cu", ":252", rows,
          train_times[("minibatch_stddev_stat", rows, torch.float32)],
          n_rows * 4 + BATCH // 4 * 4, 6 * n_rows, None),
-        ("bias_lrelu_gain", "bias_act.cu", ":97", big,
-         ops_times[("bias_lrelu_gain", torch.float32)], 2 * n_big * 4 + big[-1] * 4,
-         4 * n_big, None),
+        ("bias_lrelu_gain", "bias_act.cu", ":97", epi[5], epi[:3], epi[4],
+         5 * int(np.prod(epi[5])), None),
         ("upfirdn2d", "upfirdn2d.cu", None, fir_shape, fir_times, fir_bytes, 0, fir_lib_ms),
     ]
     path_launches = dict(train_launches, bias_lrelu_gain=sg2_launches["bias_lrelu_gain"],
@@ -4211,9 +4319,13 @@ def main() -> int:
                        "bound_by": b_by, "library_ms": lib_ms,
                        "chunked_launches": chunk_launches.get(name, 0),
                        "shape": list(shape),
-                       "dtype": "bfloat16" if name == "upfirdn2d" else "float32"})
-    # upfirdn2d's row is its bf16 timed call: its error against the
-    # composition at that call, in bf16's units in the last place too
+                       "dtype": "bfloat16" if name in ("bias_lrelu_gain", "upfirdn2d")
+                       else "float32"})
+    # bias_lrelu_gain's row is the one-pass epilogue (demodulation, noise,
+    # bias, lrelu, clamp) beside the two passes it replaced; upfirdn2d's is
+    # its bf16 timed call: its error against the composition at that call,
+    # in bf16's units in the last place too
+    report[-2]["two_pass_device_ms"] = epi[3]
     report[-1]["max_ulps"] = fir_ulps
     print(json.dumps({"kernels": report}))
     print(card)

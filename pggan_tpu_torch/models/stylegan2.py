@@ -14,9 +14,12 @@ PyTorch code builds it (github.com/NVlabs/stylegan2-ada-pytorch,
     generator returns it).
 
 A conv layer: style s = affine(w) (bias initialised to 1) →
-`ops.modulated.modulated_conv2d` (modulate, conv, demodulate, + the
-layer's constant noise × its learned strength) → `bias_act(lrelu, gain √2,
-clamp conv_clamp)`, one launch of the clamped `bias_lrelu_gain` kernel. A
+`ops.modulated.modulated_conv2d` (modulate, conv, then the epilogue:
+demodulate, + the layer's constant noise × its learned strength, bias +
+lrelu·√2, clamp conv_clamp). When sampling (no autograd), the epilogue is
+one pass of the `bias_lrelu_gain` kernel over the conv's output
+(`kernels.modconv_epilogue`, d, noise and bias in f32); under autograd it is
+`addcmul` and then `bias_act`, the clamped `bias_lrelu_gain` kernel. A
 toRGB: s = affine(w)/sqrt(C_in), a 1×1 modulated conv without
 demodulation, `bias_act(linear, clamp conv_clamp)`. Channels at
 resolution r: min(2·fmap_base / r, fmap_max); config-f (fmap_base 32768)
@@ -132,8 +135,8 @@ class MappingNetwork(nn.Module):
 
 
 class SynthesisLayer(nn.Module):
-    """affine → modulated 3×3 conv (2× up for conv0) → + noise → bias +
-    lrelu·√2, clamped."""
+    """affine → modulated 3×3 conv (2× up for conv0) → demodulation + noise
+    + bias → lrelu·√2, clamped (the epilogue inside `modulated_conv2d`)."""
 
     def __init__(self, in_ch: int, out_ch: int, *, w_dim: int, resolution: int, up: int,
                  conv_clamp: Optional[float], generator: torch.Generator):
@@ -149,10 +152,11 @@ class SynthesisLayer(nn.Module):
         self.conv_clamp = conv_clamp
 
     def forward(self, x: torch.Tensor, w: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
-        x = modulated_conv2d(x, self.weight, self.affine(w), up=self.up, padding=1,
-                             resample_filter=f, noise=self.noise_const * self.noise_strength,
-                             flip_weight=self.up == 1)
-        return bias_act(x, self.bias.to(x.dtype), act="lrelu", clamp=self.conv_clamp)
+        return modulated_conv2d(x, self.weight, self.affine(w), up=self.up, padding=1,
+                                resample_filter=f,
+                                noise=self.noise_const * self.noise_strength,
+                                flip_weight=self.up == 1, act="lrelu", bias=self.bias,
+                                clamp=self.conv_clamp)
 
 
 class ToRGB(nn.Module):

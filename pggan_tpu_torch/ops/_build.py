@@ -56,11 +56,15 @@ _SIGNATURES = {
     # x, f, dtype -> values a load (4 or 8: vector branch; 1: generic branch)
     "pggan_minibatch_stddev_plan": (_c_int, [_c_void_p, _c_int64, _c_int,
                                              ctypes.POINTER(_c_int)]),
-    # x, b (or null), y, n, cols, x dtype, b dtype, slope, gain, clamp (< 0:
-    # none), stream
-    "pggan_bias_lrelu_gain": (_c_int, [_c_void_p, _c_void_p, _c_void_p, _c_int64,
-                                       _c_int, _c_int, _c_int, _c_float, _c_float,
-                                       _c_float, _c_void_p]),
+    # x, b, d, noise (each of the three or null), y, n, cols, hw (pixels a
+    # sample), x dtype, b dtype, slope, gain, clamp (< 0: none), stream
+    "pggan_bias_lrelu_gain": (_c_int, [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                                       _c_void_p, _c_int64, _c_int, _c_int64, _c_int,
+                                       _c_int, _c_float, _c_float, _c_float, _c_void_p]),
+    # x, b, d, y (or null), cols, x dtype -> values a load (4 or 8: vector
+    # path; 1: scalar path)
+    "pggan_bias_lrelu_gain_plan": (_c_int, [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                                            _c_int, _c_int, ctypes.POINTER(_c_int)]),
     # x, f (or null), y, n, c, h, w, oh, ow, upx, upy, downx, downy, padx0,
     # pady0, fh, fw, f ndim, flip, gain, dtype, stream
     "pggan_upfirdn2d": (_c_int, [_c_void_p, _c_void_p, _c_void_p] + [_c_int] * 16

@@ -9,6 +9,7 @@ their autograd rules and the launch counters — the counterpart of
 | `lrelu_pixel_norm_bwd`  | `pggan_lrelu_pixel_norm_bwd` (norm_kernels) | `_lrelu_pn_bwd_kernel`          |
 | `minibatch_stddev_stat` | `pggan_minibatch_stddev_stat` (mb_stddev)   | `_mb_stddev_kernel`             |
 | `bias_lrelu_gain`       | `pggan_bias_lrelu_gain` (bias_act.cu)       | `_bias_lrelu_kernel`            |
+| `modconv_epilogue`      | `pggan_bias_lrelu_gain` (bias_act.cu)       | none (XLA ops in the JAX package) |
 | `upfirdn2d`             | `pggan_upfirdn2d` (upfirdn2d.cu)            | none (XLA ops in the JAX package) |
 
 The device decides the path: on a CPU tensor a wrapper runs the plain
@@ -17,7 +18,10 @@ its input into another layout and never falls back to the plain version.
 `upfirdn2d` has no plain version here and no autograd rule: `ops.resample`
 calls it for CUDA tensors, raises where a call lies outside the kernel's
 envelope, runs its own composition of torch ops on other devices, and
-holds the op's autograd rule.
+holds the op's autograd rule. `modconv_epilogue` is StyleGAN2's modulated-conv
+epilogue (demodulation, noise, bias, leaky ReLU, gain, clamp) in one pass of
+the bias-act kernel; it is forward only, for calls that autograd does not
+record, and counts its launches as `bias_lrelu_gain`'s.
 While `torch.export` traces a program, `pixel_norm` and `lrelu_pixel_norm`
 call the registered operators `pggan::pixel_norm` and
 `pggan::lrelu_pixel_norm` instead, which run the same forwards when the
@@ -151,9 +155,15 @@ def along(b: torch.Tensor, ndim: int, dim: int) -> torch.Tensor:
 
 
 def _bias_lrelu_gain_f32(x: torch.Tensor, b: Optional[torch.Tensor], slope: float,
-                         gain: float, dim: int) -> torch.Tensor:
-    """leaky_relu(x + b, slope) · gain in f32, before any clamp."""
+                         gain: float, dim: int, d: Optional[torch.Tensor] = None,
+                         noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """leaky_relu(x·d + noise + b, slope) · gain in f32, before any clamp;
+    each product and sum rounded on its own, in this order (the kernel's)."""
     z = x.float()
+    if d is not None:
+        z = z * d.float().reshape(*d.shape, *([1] * (x.ndim - 2)))
+    if noise is not None:
+        z = z + noise.float()
     if b is not None:
         z = z + along(b.float(), x.ndim, dim)
     return torch.where(z >= 0, z, z * slope) * gain
@@ -161,12 +171,16 @@ def _bias_lrelu_gain_f32(x: torch.Tensor, b: Optional[torch.Tensor], slope: floa
 
 def bias_lrelu_gain_plain(x: torch.Tensor, b: Optional[torch.Tensor] = None,
                           slope: float = 0.2, gain: float = SQRT2,
-                          dim: int = 1, clamp: Optional[float] = None) -> torch.Tensor:
+                          dim: int = 1, clamp: Optional[float] = None, *,
+                          d: Optional[torch.Tensor] = None,
+                          noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """leaky_relu(x + b, slope) · gain with b broadcast along `dim`, then
     clamped to [-clamp, clamp] when a clamp is given; math in f32, one
     rounding to x's dtype (`_bias_lrelu_kernel`, `pallas_kernels.py:97-100`,
-    with `bias_act`'s clamp). b None is a zero bias."""
-    y = _bias_lrelu_gain_f32(x, b, slope, gain, dim)
+    with `bias_act`'s clamp). b None is a zero bias. For a [B, C, H, W] x,
+    d ([B, C]) scales x and noise ([H, W]) is added before the bias, as
+    `modconv_epilogue` computes: leaky_relu(x·d + noise + b)."""
+    y = _bias_lrelu_gain_f32(x, b, slope, gain, dim, d, noise)
     if clamp is not None:
         y = y.clamp(-clamp, clamp)
     return y.to(x.dtype)
@@ -353,23 +367,51 @@ def _minibatch_stddev_stat_fwd(x: torch.Tensor, sg: int, eps: float) -> torch.Te
     return out
 
 
+def _check_operand(name: str, t: Optional[torch.Tensor], shape: Tuple[int, ...],
+                   dtypes: Tuple[torch.dtype, ...], x: torch.Tensor) -> None:
+    if t is not None and (tuple(t.shape) != shape or t.dtype not in dtypes
+                          or t.device != x.device or not t.is_contiguous()):
+        kinds = " or ".join(str(dt) for dt in dict.fromkeys(dtypes))
+        raise ValueError(f"{name} must be a contiguous {list(shape)} {kinds} tensor on "
+                         f"{x.device}; got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _launch_bias_act(x: torch.Tensor, b: Optional[torch.Tensor], d: Optional[torch.Tensor],
+                     noise: Optional[torch.Tensor], hw: int, slope: float, gain: float,
+                     dim: int, clamp: Optional[float]) -> torch.Tensor:
+    n, cols = kernel_channels(x, dim)
+    _check_operand("b", b, (cols,), (torch.float32, x.dtype), x)
+    _cuda_or_raise("bias_lrelu_gain", x)
+    y = torch.empty_like(x)            # x is dense, so y gets x's strides
+    _call("bias_lrelu_gain", "pggan_bias_lrelu_gain", x, x.data_ptr(),
+          None if b is None else b.data_ptr(), None if d is None else d.data_ptr(),
+          None if noise is None else noise.data_ptr(), y.data_ptr(), n, cols, hw,
+          _DTYPE_CODES[x.dtype], 0 if b is None else _DTYPE_CODES[b.dtype],
+          float(slope), float(gain), -1.0 if clamp is None else float(clamp))
+    return y
+
+
 def _bias_lrelu_gain_fwd(x: torch.Tensor, b: Optional[torch.Tensor], slope: float,
                          gain: float, dim: int, clamp: Optional[float]) -> torch.Tensor:
     if x.is_cpu:
         return bias_lrelu_gain_plain(x, b, slope, gain, dim, clamp)
-    n, cols = kernel_channels(x, dim)
-    if b is not None and (b.shape != (cols,) or b.dtype not in (torch.float32, x.dtype)
-                          or b.device != x.device or not b.is_contiguous()):
-        raise ValueError(
-            f"b must be a contiguous [{cols}] float32 or {x.dtype} vector on {x.device}; "
-            f"got {tuple(b.shape)} {b.dtype} on {b.device}")
-    _cuda_or_raise("bias_lrelu_gain", x)
-    y = torch.empty_like(x)            # x is dense, so y gets x's strides
-    _call("bias_lrelu_gain", "pggan_bias_lrelu_gain", x, x.data_ptr(),
-          None if b is None else b.data_ptr(), y.data_ptr(), n, cols,
-          _DTYPE_CODES[x.dtype], 0 if b is None else _DTYPE_CODES[b.dtype],
-          float(slope), float(gain), -1.0 if clamp is None else float(clamp))
-    return y
+    return _launch_bias_act(x, b, None, None, 1, slope, gain, dim, clamp)
+
+
+def bias_lrelu_gain_plan(x: torch.Tensor, b: Optional[torch.Tensor] = None,
+                         d: Optional[torch.Tensor] = None) -> int:
+    """The path the bias-act kernel takes for x with b and d, and an output
+    of its own (a fresh allocation, 16-byte aligned): the values a load, 4
+    (f32) or 8 (bf16) on the 16-byte vector path, 1 on the scalar one. The
+    C side decides; this asks it."""
+    _, cols = kernel_channels(x)
+    per_load = ctypes.c_int()
+    err = _build.load_library().pggan_bias_lrelu_gain_plan(
+        x.data_ptr(), None if b is None else b.data_ptr(), None if d is None else d.data_ptr(),
+        None, cols, _DTYPE_CODES[x.dtype], ctypes.byref(per_load))
+    if err != 0:
+        raise RuntimeError(f"pggan_bias_lrelu_gain_plan: CUDA error {err}")
+    return per_load.value
 
 
 def upfirdn2d(x: torch.Tensor, f: Optional[torch.Tensor], up: Tuple[int, int],
@@ -552,6 +594,33 @@ def minibatch_stddev_stat(x: torch.Tensor, sg: int, eps: float = EPS) -> torch.T
     if torch.is_grad_enabled() and x.requires_grad:     # autograd records the call
         return _MinibatchStddevStat.apply(x, int(sg), float(eps))
     return _minibatch_stddev_stat_fwd(x, int(sg), float(eps))
+
+
+def modconv_epilogue(x: torch.Tensor, d: Optional[torch.Tensor], noise: Optional[torch.Tensor],
+                     b: Optional[torch.Tensor], slope: float = 0.2, gain: float = SQRT2,
+                     clamp: Optional[float] = None) -> torch.Tensor:
+    """A StyleGAN2 modulated conv's epilogue in one pass over its raw output
+    x ([B, C, H, W], channels_last): clamp(leaky_relu(x·d + noise + b,
+    slope)·gain, ±clamp), d the [B, C] demodulation coefficients, noise the
+    [H, W] per-pixel noise, b the [C] bias, each optional (None: left out);
+    math in f32, one rounding to x's dtype (`bias_lrelu_gain_plain` with d
+    and noise). The bias-act kernel on a CUDA tensor (d and noise float32, b
+    float32 or x's dtype; raises outside that), the plain version on a CPU
+    one. Forward only: raises where autograd would record the call."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, d, noise, b)):
+        raise RuntimeError("modconv_epilogue has no autograd rule; compose addcmul and "
+                           "bias_act where gradients are needed")
+    clamp = None if clamp is None else float(clamp)
+    if x.is_cpu:
+        return bias_lrelu_gain_plain(x, b, float(slope), float(gain), 1, clamp, d=d,
+                                     noise=noise)
+    if x.ndim != 4:
+        raise ValueError(f"expected a 4-D [B, C, H, W] tensor, got shape {tuple(x.shape)}")
+    batch, cols, h, w = x.shape
+    _check_operand("d", d, (batch, cols), (torch.float32,), x)
+    _check_operand("noise", noise, (h, w), (torch.float32,), x)
+    return _launch_bias_act(x, b, d, noise, h * w, slope, gain, 1, clamp)
 
 
 def bias_lrelu_gain(x: torch.Tensor, b: Optional[torch.Tensor] = None,

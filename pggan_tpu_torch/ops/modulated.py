@@ -17,11 +17,21 @@ cell's shapes on an H100 and lost: PERF.md). d comes from one product,
 through the FIR filter (`upsample2d`, padding as NVIDIA's `conv2d_resample`
 takes it), then convolved without padding.
 
+A caller may pass the layer's epilogue (`act`, `bias`, `clamp`: StyleGAN2's
+`bias_act(lrelu, gain √2, clamp)`). With demodulation and a leaky ReLU, where
+autograd does not record the call and no program is being exported, the
+demodulation, noise, bias, activation and clamp are one pass over the conv's
+output, `kernels.modconv_epilogue` (the bias-act kernel on a CUDA tensor),
+with d, noise and the bias in f32 and one rounding to x's dtype. Otherwise
+they are composed: d and noise rounded to x's dtype, `torch.addcmul`, then
+`bias_act` with the bias in x's dtype.
+
 x is a logical NCHW tensor in `torch.channels_last` memory, in the block's
 compute dtype; weight ([O, I, kh, kw]) and styles ([B, I]) are f32 and are
 cast to x's dtype where they meet it, as NVIDIA's code does. `counts`
-tallies the calls; each call is a `stylegan2.modconv` profiler range, and
-its upsample a `stylegan2.resample` range inside it.
+tallies the calls (`modconv`) and those whose epilogue took the one pass
+(`fused_epilogue`); each call is a `stylegan2.modconv` profiler range, its
+epilogue included, and its upsample a `stylegan2.resample` range inside it.
 """
 
 from __future__ import annotations
@@ -32,14 +42,17 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from pggan_tpu_torch.ops import kernels
+from pggan_tpu_torch.ops.basic import bias_act
 from pggan_tpu_torch.ops.resample import upsample2d
 
 EPS = 1e-8
 MODCONV_SPAN = "stylegan2.modconv"
 RESAMPLE_SPAN = "stylegan2.resample"
 
-# Modulated convolutions since the last `reset_counts()`.
-counts = {"modconv": 0}
+# Modulated convolutions since the last `reset_counts()`, and those whose
+# epilogue ran as one pass.
+counts = {"modconv": 0, "fused_epilogue": 0}
 
 
 def reset_counts() -> None:
@@ -51,10 +64,14 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor, styles: torch.Tensor
                      demodulate: bool = True, up: int = 1, padding: int = 0,
                      resample_filter: Optional[torch.Tensor] = None,
                      noise: Optional[torch.Tensor] = None,
-                     flip_weight: bool = True) -> torch.Tensor:
+                     flip_weight: bool = True, act: Optional[str] = None,
+                     bias: Optional[torch.Tensor] = None,
+                     clamp: Optional[float] = None) -> torch.Tensor:
     """[B, I, H, W] → [B, O, H·up, W·up]. `flip_weight=False` convolves
     (NVIDIA's up = 2 layers), True correlates; `noise` ([H·up, W·up]) is
-    added after the demodulation."""
+    added after the demodulation. With `act`, the layer's epilogue
+    `bias_act(·, bias, act, clamp=clamp)` follows, as one pass where the
+    module docstring says."""
     counts["modconv"] += 1
     with record_function(MODCONV_SPAN):
         batch, dt = x.shape[0], x.dtype
@@ -71,7 +88,17 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor, styles: torch.Tensor
             # d [B, O] = rsqrt(Σ_i s_bi² Σ_k w_oik² + eps), one f32 product
             d = torch.rsqrt(styles.float().square() @ weight.float().square().sum(dim=[2, 3]).t()
                             + EPS)
+            if act == "lrelu" and not torch.compiler.is_exporting() and not (
+                    torch.is_grad_enabled() and any(
+                        t is not None and t.requires_grad
+                        for t in (x, weight, styles, noise, bias))):
+                counts["fused_epilogue"] += 1
+                return kernels.modconv_epilogue(x, d, noise, bias, clamp=clamp)
             d = d.to(dt).reshape(batch, -1, 1, 1)
             # x·d + noise in one pass, as NVIDIA's `fma`
-            return x * d if noise is None else torch.addcmul(noise.to(dt), x, d)
-        return x if noise is None else x + noise.to(dt)
+            x = x * d if noise is None else torch.addcmul(noise.to(dt), x, d)
+        elif noise is not None:
+            x = x + noise.to(dt)
+        if act is None:
+            return x
+        return bias_act(x, None if bias is None else bias.to(dt), act=act, clamp=clamp)

@@ -24,6 +24,7 @@ Tolerances, each with its reason:
   single leaf is held to a bound.
 """
 
+import itertools
 import math
 import os
 import statistics
@@ -179,27 +180,34 @@ def test_the_float32_parts_run_without_tf32(monkeypatch):
 
 def test_a_1024_forward_counts_26_modconvs_and_25_kernel_epilogues(monkeypatch):
     """At config-f's layer count (1024², 9 blocks; 1-4 channels so that it
-    runs here): 17 conv + 9 toRGB modulated convs, and 8 mapping + 17
-    synthesis epilogues on the `bias_lrelu_gain` route, the launches that
-    `benchmark/kernels/bias_lrelu_gain.py` counts."""
+    runs here): 17 conv + 9 toRGB modulated convs, and 25 epilogues on the
+    bias-act kernel's two wrappers, the launches that
+    `benchmark/kernels/bias_lrelu_gain.py` counts: the 8 mapping layers
+    through `bias_lrelu_gain`, the 17 synthesis convs through the one-pass
+    `modconv_epilogue` (sampling: no autograd)."""
     cfg = dict(CFG, z_dim=8, w_dim=8, resolution=1024, fmap_base=512, fmap_max=4,
                mapping_layers=8, num_fp16_res=4)
     G = _generator(cfg)
     routed = []
-    inner = kernels.bias_lrelu_gain
 
-    def count(x, *args, **kwargs):
-        routed.append(tuple(x.shape))
-        return inner(x, *args, **kwargs)
-    monkeypatch.setattr(kernels, "bias_lrelu_gain", count)
+    def counting(name):
+        inner = getattr(kernels, name)
+
+        def count(x, *args, **kwargs):
+            routed.append((name, tuple(x.shape)))
+            return inner(x, *args, **kwargs)
+        return count
+    for name in ("bias_lrelu_gain", "modconv_epilogue"):
+        monkeypatch.setattr(kernels, name, counting(name))
     modulated.reset_counts()
     kernels.reset_launch_counts()
     with torch.no_grad():
         out = G(_latents(n=1, dim=8))
     assert out.shape == (1, 1024, 1024, 3)
-    assert modulated.counts["modconv"] == 26
-    assert len(routed) == 25 and routed[:8] == [(1, 8)] * 8
-    assert routed[8:10] == [(1, 4, 4, 4), (1, 4, 8, 8)]
+    assert modulated.counts == {"modconv": 26, "fused_epilogue": 17}
+    assert len(routed) == 25 and routed[:8] == [("bias_lrelu_gain", (1, 8))] * 8
+    assert {name for name, _ in routed[8:]} == {"modconv_epilogue"}
+    assert [shape for _, shape in routed[8:10]] == [(1, 4, 4, 4), (1, 4, 8, 8)]
     assert all(n == 0 for n in kernels.launches.values())        # the CPU runs plain code
 
 
@@ -264,6 +272,254 @@ def test_the_kernels_clamp_on_the_card(card, dtype):
         torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
         assert bool(torch.isnan(got[0, 0, 0, 0]))
         assert float(got[~torch.isnan(got)].float().abs().max()) == 256.0
+
+
+# ---------------------------------------------------------------------------
+# the modulated conv's epilogue in one pass (`kernels.modconv_epilogue`)
+# ---------------------------------------------------------------------------
+
+GAIN = math.sqrt(2.0)
+# which of d, noise and the bias a call passes
+PARTS = list(itertools.product((True, False), repeat=3))
+PART_IDS = ["".join(n if on else "-" for n, on in zip("dnb", p)) for p in PARTS]
+# config-f's conv outputs: (resolution, channels) of its 9 resolutions
+SG2_CONV_OUTPUTS = [(r, 512) for r in (4, 8, 16, 32, 64, 128)] + [(256, 256), (512, 128),
+                                                                  (1024, 64)]
+
+
+def _epilogue_inputs(shape, dtype, gen, device="cpu", exact_products=False):
+    """x [B, C, H, W] channels_last, N(0, 300²) so that a clamp of 256
+    bites, with one NaN; d [B, C] in [0.5, 1.5), noise [H, W] and the bias
+    [C], all three f32. `exact_products`: x on bf16's grid and d on a grid
+    of 2⁻¹⁵, so that x·d (8 and 16 significant bits) is exact in f32."""
+    batch, c, h, w = shape
+    x = torch.randn(shape, generator=gen, device=device) * 300
+    d = torch.rand((batch, c), generator=gen, device=device) + 0.5
+    if exact_products:
+        x, d = x.to(torch.bfloat16).float(), torch.round(d * 2 ** 15) / 2 ** 15
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    x[0, 0, 0, 0] = float("nan")
+    noise = torch.randn((h, w), generator=gen, device=device)
+    b = torch.randn((c,), generator=gen, device=device)
+    return x, d, noise, b
+
+
+def _composed_epilogue(x, d, noise, b, clamp):
+    """The composition `modulated_conv2d` runs under autograd: d and noise
+    rounded to x's dtype, `addcmul` (or its one product or sum), then
+    `bias_act` with the bias in x's dtype."""
+    dt = x.dtype
+    if d is not None:
+        dd = d.to(dt).reshape(*d.shape, 1, 1)
+        x = x * dd if noise is None else torch.addcmul(noise.to(dt), x, dd)
+    elif noise is not None:
+        x = x + noise.to(dt)
+    return basic.bias_act(x, None if b is None else b.to(dt), act="lrelu", clamp=clamp)
+
+
+@pytest.mark.parametrize("parts", PARTS, ids=PART_IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_one_pass_epilogue_equals_the_composition(dtype, parts):
+    """`kernels.modconv_epilogue` (the plain version here) against the
+    composition it replaces, with each of d, noise and the bias present or
+    not, NaN passed through and the clamp biting. float32: bit for bit, on
+    inputs whose x·d is exact in f32, since `addcmul` may fuse its multiply
+    and add (it does on this CPU) where the one pass rounds each. bf16: the
+    composition rounds d, noise, the bias and x·d + noise to bf16, the one
+    pass none of them, so they differ by at most one bf16 rounding (2⁻⁸
+    relative) of each term, times the gain, and of each output."""
+    gen = torch.Generator().manual_seed(31)
+    x, d, noise, b = _epilogue_inputs((2, 16, 6, 5), dtype, gen,
+                                      exact_products=dtype == torch.float32)
+    d, noise, b = (t if on else None for t, on in zip((d, noise, b), parts))
+    got = kernels.modconv_epilogue(x, d, noise, b, 0.2, GAIN, 256.0)
+    want = _composed_epilogue(x, d, noise, b, 256.0)
+    assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
+    assert bool(torch.isnan(got[0, 0, 0, 0])) and bool(torch.isnan(want[0, 0, 0, 0]))
+    assert float(got[~torch.isnan(got)].float().abs().max()) == 256.0
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+        return
+    p = x.float() * (1.0 if d is None else d.reshape(2, 16, 1, 1))
+    n = torch.zeros(()) if noise is None else noise
+    terms = p.abs() + n.abs() + (p + n).abs() + (0.0 if b is None else b.view(1, -1, 1, 1).abs())
+    bound = 2.0 ** -8 * (GAIN * terms + got.float().abs() + want.float().abs())
+    ok = ~torch.isnan(p)
+    assert bool(((got.float() - want.float()).abs()[ok] <= bound[ok]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_modulated_conv_takes_the_one_pass_only_without_autograd(dtype):
+    """conv0's form (2× up, convolving): under `no_grad` the epilogue is the
+    one pass, under autograd the composition, and gradients reach the
+    styles; the two agree to a few units in the last place of the largest
+    value (f32: addcmul's fused multiply-add; bf16: the composition's
+    roundings of d, noise, the bias and x·d + noise)."""
+    g = torch.Generator().manual_seed(32)
+    x = torch.randn((2, 6, 5, 5), generator=g).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    w, s = torch.randn((4, 6, 3, 3), generator=g), torch.randn((2, 6), generator=g)
+    kw = dict(up=2, padding=1, resample_filter=stylegan2.setup_filter(stylegan2.FIR, device="cpu"),
+              noise=torch.randn((10, 10), generator=g), flip_weight=False, act="lrelu",
+              bias=torch.randn(4, generator=g), clamp=256.0)
+    modulated.reset_counts()
+    with torch.no_grad():
+        fused = modulated.modulated_conv2d(x, w, s, **kw)
+    assert modulated.counts == {"modconv": 1, "fused_epilogue": 1}
+    styles = s.clone().requires_grad_(True)
+    composed = modulated.modulated_conv2d(x, w, styles, **kw)
+    assert modulated.counts == {"modconv": 2, "fused_epilogue": 1}
+    composed.float().square().sum().backward()
+    assert float(styles.grad.abs().max()) > 0
+    assert fused.dtype == dtype and fused.is_contiguous(memory_format=torch.channels_last)
+    largest = float(composed.detach().float().abs().max())
+    atol = (2.0 ** -20 if dtype == torch.float32 else 2.0 ** -6) * largest
+    torch.testing.assert_close(fused.float(), composed.detach().float(), rtol=0, atol=atol)
+
+
+def test_the_counter_engages_once_per_conv_layer_without_autograd():
+    """`counts["fused_epilogue"]`: the 7 conv layers of the 32² generator
+    under `no_grad`, none under autograd (its parameters require grad); the
+    float32 images of the two routes agree to a few units in the last place."""
+    G = _generator()
+    z = _latents(n=2)
+    modulated.reset_counts()
+    with torch.no_grad():
+        fused = G(z, compute_dtype=torch.float32)
+    assert modulated.counts == {"modconv": 11, "fused_epilogue": 7}
+    modulated.reset_counts()
+    composed = G(z, compute_dtype=torch.float32)
+    composed.sum().backward()
+    assert modulated.counts == {"modconv": 11, "fused_epilogue": 0}
+    largest = float(composed.detach().abs().max())
+    torch.testing.assert_close(fused, composed.detach(), rtol=0, atol=1e-6 * largest)
+
+
+def test_the_one_pass_epilogue_is_forward_only():
+    x = torch.randn((1, 4, 3, 3)).contiguous(memory_format=torch.channels_last)
+    with pytest.raises(RuntimeError, match="no autograd rule"):
+        kernels.modconv_epilogue(x.requires_grad_(True), None, None, None)
+    with torch.no_grad():
+        assert kernels.modconv_epilogue(x, None, None, None).shape == x.shape
+
+
+class _OnCuda(torch.Tensor):
+    """A CPU tensor that reads as a CUDA one, to drive the dispatch here."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+    @property
+    def is_cpu(self):
+        return False
+
+
+EPILOGUE_ROUTES = [   # (id, the call's inputs changed, refusal (type, words) or None)
+    ("f32", {}, None),
+    ("bf16, bias in x's dtype", dict(x=torch.bfloat16, b=torch.bfloat16), None),
+    ("no d, noise or bias", dict(d=None, noise=None, b=None), None),
+    ("nchw", dict(x=torch.contiguous_format), (ValueError, "innermost in memory")),
+    ("f16", dict(x=torch.float16), (TypeError, "float32 or bfloat16")),
+    ("2-D", dict(x=(2, 8)), (ValueError, "4-D")),
+    ("d bf16", dict(d=torch.bfloat16), (ValueError, "d must be")),
+    ("d [C]", dict(d=(8,)), (ValueError, "d must be")),
+    ("noise [H, W+1]", dict(noise=(5, 7)), (ValueError, "noise must be")),
+    ("bias [C+1]", dict(b=(9,)), (ValueError, "b must be")),
+]
+
+
+@pytest.mark.parametrize("name, change, refusal", EPILOGUE_ROUTES,
+                         ids=[c[0] for c in EPILOGUE_ROUTES])
+def test_the_one_pass_epilogue_dispatch_on_a_cuda_tensor(monkeypatch, name, change, refusal):
+    """A call on a CUDA tensor (a CPU one that reads as CUDA) launches the
+    bias-act kernel with d, noise, the pixels a sample and the clamp, or
+    raises outside the kernel's envelope, never running the plain version."""
+    x = torch.zeros((2, 8, 5, 6)).contiguous(memory_format=torch.channels_last)
+    args = dict(x=x, d=torch.ones((2, 8)), noise=torch.zeros((5, 6)), b=torch.zeros(8))
+    for key, how in change.items():
+        if how is None or isinstance(how, tuple):
+            args[key] = None if how is None else torch.zeros(how)
+        elif isinstance(how, torch.memory_format):
+            args[key] = args[key].contiguous(memory_format=how)
+        else:
+            args[key] = args[key].to(how)
+    calls = []
+    monkeypatch.setattr(kernels, "_call", lambda *a: calls.append(a))
+    monkeypatch.setattr(kernels, "bias_lrelu_gain_plain", None)     # never called
+    cuda = {k: None if v is None else v.as_subclass(_OnCuda) for k, v in args.items()}
+    if refusal is not None:
+        with pytest.raises(refusal[0], match=refusal[1]):
+            kernels.modconv_epilogue(cuda["x"], cuda["d"], cuda["noise"], cuda["b"], 0.2,
+                                     GAIN, 256.0)
+        assert not calls
+        return
+    y = kernels.modconv_epilogue(cuda["x"], cuda["d"], cuda["noise"], cuda["b"], 0.2, GAIN,
+                                 256.0)
+    assert y.shape == x.shape and y.stride() == args["x"].stride()
+    (name_, entry, _, *c_args), = calls
+    ptr = [None if args[k] is None else cuda[k].data_ptr() for k in ("b", "d", "noise")]
+    x_code = 1 if args["x"].dtype == torch.bfloat16 else 0
+    b_code = 1 if args["b"] is not None and args["b"].dtype == torch.bfloat16 else 0
+    assert (name_, entry) == ("bias_lrelu_gain", "pggan_bias_lrelu_gain")
+    assert c_args == [cuda["x"].data_ptr(), *ptr, y.data_ptr(), 2 * 8 * 30, 8, 30, x_code,
+                      b_code, 0.2, GAIN, 256.0]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_one_pass_epilogue_on_the_card(card, dtype):
+    """The bias-act kernel with d and noise against its plain version, bit
+    for bit (both round each product and sum on its own), at the conv
+    outputs of config-f's 9 resolutions (batch 2, C 512 to 64), at C = 30
+    with an odd H × W and on a view 2-4 bytes off alignment (the scalar
+    path); each of d, noise and the bias present or null, and a bias in x's
+    dtype; NaN passed through, the clamp biting; one launch a call; the path
+    each input takes."""
+    g = torch.Generator(device=card).manual_seed(24)
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    shapes = [(2, c, r, r) for r, c in SG2_CONV_OUTPUTS] + [(2, 30, 33, 17)]
+    for shape in shapes:
+        x, d0, noise0, b0 = _epilogue_inputs(shape, dtype, g, card)
+        inputs = [(x, vec if shape[1] % vec == 0 else 1)]
+        if shape[1] == 64:
+            flat = torch.empty(x.numel() + 1, dtype=dtype, device=card)[1:]
+            skewed = flat.view(shape[0], *shape[2:], shape[1]).permute(0, 3, 1, 2)
+            inputs.append((skewed.copy_(x), 1))
+        biases = [b0] + ([b0.to(dtype)] if dtype != torch.float32 else [])
+        for (xi, per_load), (with_d, with_noise, with_b), b in itertools.product(
+                inputs, PARTS, biases):
+            d, noise = (d0 if with_d else None), (noise0 if with_noise else None)
+            bias = b if with_b else None
+            assert kernels.bias_lrelu_gain_plan(xi, bias, d) == per_load, shape
+            kernels.reset_launch_counts()
+            got = kernels.modconv_epilogue(xi, d, noise, bias, 0.2, GAIN, 256.0)
+            assert kernels.launches["bias_lrelu_gain"] == 1
+            want = kernels.bias_lrelu_gain_plain(xi, bias, 0.2, GAIN, 1, 256.0, d=d,
+                                                 noise=noise)
+            torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+            assert got.stride() == xi.stride() and bool(torch.isnan(got[0, 0, 0, 0]))
+            assert float(got[~torch.isnan(got)].float().abs().max()) == 256.0
+
+
+@pytest.mark.card
+def test_a_config_f_forward_on_the_card(card):
+    """One config-f forward at 1024² (batch 1, sampling): 25 launches of the
+    bias-act kernel (8 mapping, 17 one-pass synthesis epilogues), 16 of
+    upfirdn2d, 26 modulated convs, all 17 epilogues on the one pass."""
+    G = stylegan2.StyleGAN2Generator(seed=22).to(card).eval().requires_grad_(False)
+    z = torch.randn((1, G.z_dim), generator=torch.Generator(device=card).manual_seed(25),
+                    device=card)
+    with torch.no_grad():
+        G(z)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        modulated.reset_counts()
+        img = G(z)
+        torch.cuda.synchronize()
+    assert kernels.launches["bias_lrelu_gain"] == 25 and kernels.launches["upfirdn2d"] == 16
+    assert modulated.counts == {"modconv": 26, "fused_epilogue": 17}
+    assert img.shape == (1, 1024, 1024, 3) and bool(torch.isfinite(img).all())
 
 
 # ---------------------------------------------------------------------------
