@@ -198,12 +198,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      on the card (f32 within 1e-6 of the largest value, bf16 at most 1 ulp
      apart); the ops-layer calls of phase 11d that reach upfirdn2d, f32
      against the CPU, bf16 against the composition, with their launches;
-     an up-4 call and an NCHW-strided call, each raising its reason
-     without a launch; filtered_lrelu's second derivative (the autograd
-     rule's backward launches the kernel) against the CPU; conv0's
-     upsample at 1024² timed (call and device ms against the composition,
-     cuDNN's depthwise `conv_transpose2d` and the bytes' bound) and each
-     recorded call's device time.
+     an up-4 call through a separable kernel; an up-8 call and an
+     NCHW-strided call, each raising its reason without a launch;
+     filtered_lrelu's second derivative (the autograd rule's backward
+     launches the kernel) against the CPU; conv0's upsample at 1024² timed
+     (call and device ms against the composition, cuDNN's depthwise
+     `conv_transpose2d` and the bytes' bound) and each recorded call's
+     device time;
+ 24. StyleGAN3-T at 1024² (`models/stylegan3.py`): one forward at batch 16
+     with the counts set to 0 and the profiler on: 28 upfirdn2d launches,
+     all separable kernels (14 up, 14 down), 31 bias_lrelu_gain launches,
+     15 modulated convs (14 one-pass), 15 filtered leaky ReLUs, a finite
+     image, the forward's ms and peak memory; layer 10's up-4 stage and
+     layer 11's down-2 stage (batch 1) through the separable kernels
+     against the f32 composition (bf16 within one rounding); both stages
+     timed at batch 16 in bf16 (call and device ms against the bytes'
+     bound, the composition at batch 1).
 
 The second-to-last lines are a JSON object describing the kernels and the
 card's name and power limit; the last line is
@@ -222,6 +232,7 @@ import itertools
 import json
 import math
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -459,6 +470,15 @@ SG2_UPSAMPLES = 16
 # Phase 23: the kernel against the composition, f32 to this share of the
 # largest value; bf16 at most this many units in the last place apart.
 UPFIRDN_F32_REL, UPFIRDN_BF16_ULPS = 1e-6, 1
+# Phase 24: the seed of StyleGAN3-T's weights and inputs; its timed FIR
+# stages (layer 10's up 4 through 24 taps, layer 11's down 2 through 12),
+# held against the f32 composition: bf16 within one rounding (2⁻⁸ of each
+# value) plus this share of the largest, f32 within this share of the
+# largest; one forward's upfirdn2d and bias-act launches.
+SG3_SEED = 23
+SG3_STAGES = ((10, "up"), (11, "down"))
+SG3_BF16_REL, SG3_ABS_OF_MAX, SG3_F32_REL = 2.0 ** -8, 1e-5, 1e-5
+SG3_FIR_CALLS, SG3_BIAS_ACT = 28, 31
 # Untimed replays before `device_ms` times its graph (see there).
 DEVICE_WARM_S = 0.1
 
@@ -3951,8 +3971,9 @@ def check_upfirdn_ops(kernels, ops, resample):
     """Phase 23c: phase 11d's ops-layer calls that reach upfirdn2d, with their
     launches: f32 on the card against the CPU (rtol 1e-5, atol 1e-5, as 11d),
     bf16 through the kernel against the composition (at most 1 ulp for a
-    single upfirdn2d); an up-4 call and an NCHW-strided call raise a
-    ValueError naming the reason, with no launch; filtered_lrelu's second
+    single upfirdn2d; an up-4 call runs a separable kernel); an up-8 call
+    and an NCHW-strided call raise a ValueError naming the reason, with no
+    launch; filtered_lrelu's second
     derivative on the card against the CPU, its backward launching the
     kernel."""
     rng = np.random.default_rng(23)
@@ -3972,6 +3993,8 @@ def check_upfirdn_ops(kernels, ops, resample):
             v, f["f23"], up=(2, 1), down=(1, 2), padding=(-1, 2, 1, -2)), 1, True),
         ("filter2d", lambda v, d, f: ops.filter2d(v, f["f4"], flip_filter=True), 1, True),
         ("upsample2d", lambda v, d, f: ops.upsample2d(v, f["f4"]), 1, True),
+        ("upfirdn2d up 4", lambda v, d, f: ops.upfirdn2d(v, None, up=4,
+                                                          padding=(0, -1, 0, -1)), 1, True),
         ("downsample2d", lambda v, d, f: ops.downsample2d(v, f["f4"]), 1, True),
         ("downsample2d box", lambda v, d, f: ops.downsample2d(v), 1, True),
         ("filtered_lrelu", lambda v, d, f: ops.filtered_lrelu(
@@ -4004,8 +4027,8 @@ def check_upfirdn_ops(kernels, ops, resample):
         kernels.reset_launch_counts()
         refusals = []
         for label, v, f, kw, words in (
-                ("up 4", x.to(DEVICE), None, dict(up=4, padding=(0, -1, 0, -1)),
-                 "1 or 2 on each axis"),
+                ("up 8", x.to(DEVICE), None, dict(up=8, padding=(0, -1, 0, -1)),
+                 "1, 2 or 4 on each axis"),
                 ("NCHW-strided", x.to(DEVICE).contiguous(), filt[DEVICE]["f4"],
                  dict(up=2, padding=(2, 1, 2, 1)), "channels_last")):
             try:
@@ -4132,6 +4155,255 @@ def run_upfirdn_phase(kernels, card):
     _, _, err, ulps = next(r for r in rows if r[0] == shape)
     print(f"[23 upfirdn] phase 23 took {time.perf_counter() - t_phase:.2f} s")
     return launches, (err, ulps), (kernel_ms, dev, plain_ms), lib_ms, shape, nbytes
+
+
+# ---- phase 24: StyleGAN3-T's filtered leaky ReLUs ----------------------------
+
+def sg3_stage(layer, stage, batch, dtype, gen):
+    """A fresh N(0, 1) input and the call of StyleGAN3-T's (1024²) layer
+    `layer`'s up or down FIR stage, as `ops.composite.filtered_lrelu` makes
+    it: (x, filter, upfirdn2d kwargs)."""
+    from pggan_tpu_torch.models.stylegan3 import design_lowpass_filter, layer_schedule
+
+    s = layer_schedule()
+    prev, rate = max(layer - 1, 0), s["tmp_rates"][layer]
+    up = s["up"][layer]
+    conv = s["sizes"][prev] + 2
+    x0, x1, _, _ = s["padding"][layer]
+    tmp = conv * up + x0 + x1 - s["up_taps"][layer] + 1
+    if stage == "up":
+        taps = design_lowpass_filter(s["up_taps"][layer], s["cutoffs"][prev],
+                                     2 * s["half_widths"][prev], rate)
+        shape, kw = (batch, conv, conv, s["channels"][layer]), dict(
+            up=up, padding=s["padding"][layer], gain=float(up * up))
+    else:
+        taps = design_lowpass_filter(s["down_taps"][layer], s["cutoffs"][layer],
+                                     2 * s["half_widths"][layer], rate)
+        shape, kw = (batch, tmp, tmp, s["channels"][layer]), dict(down=s["down"][layer])
+    f = torch.as_tensor(taps, dtype=torch.float32, device=DEVICE)
+    return nhwc(shape, dtype, gen), f, kw
+
+
+def run_sg3_forward(kernels, card, gen):
+    """Phase 24a: one StyleGAN3-T forward at 1024² (bf16 from sampling rate
+    128, float32 below), batch 16, every count set to 0 just before and the
+    profiler on: 28 upfirdn2d launches, every one a separable kernel (14
+    `upfirdn2d_sep_up_kernel`, 14 `upfirdn2d_sep_down_kernel`), 31
+    bias_lrelu_gain launches (2 mapping, 14 one-pass x·d + b epilogues, 15
+    activations), 15 modulated convs (14 one-pass) and 15 filtered leaky
+    ReLUs; the image finite; the forward's device ms and peak memory.
+    Returns the launches."""
+    from pggan_tpu_torch.models.stylegan3 import StyleGAN3Generator
+    from pggan_tpu_torch.ops import composite, modulated
+
+    t_phase = time.perf_counter()
+    G = StyleGAN3Generator(seed=SG3_SEED).to(DEVICE).eval().requires_grad_(False)
+    z = torch.randn((BATCH, G.z_dim), generator=gen, device=DEVICE)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        G(z)                                  # cuDNN picks its algorithms
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        modulated.reset_counts()
+        composite.reset_counts()
+        activities = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            img = G(z)
+            torch.cuda.synchronize()
+        launches, modconvs = dict(kernels.launches), dict(modulated.counts)
+        flrelus = dict(composite.counts)
+        fwd_ms = time_ms(lambda: G(z), iters=3, warmup=1)
+    gib = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    fir = collections.Counter(
+        re.search(r"upfirdn2d_\w+_kernel", e.name).group(0) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and "upfirdn2d" in e.name)
+    want = dict.fromkeys(launches, 0)
+    want.update(bias_lrelu_gain=SG3_BIAS_ACT, upfirdn2d=SG3_FIR_CALLS)
+    check(launches == want, f"StyleGAN3 forward launches {launches}, expected {want}")
+    check(fir == {"upfirdn2d_sep_up_kernel": 14, "upfirdn2d_sep_down_kernel": 14},
+          f"StyleGAN3's FIR kernels {dict(fir)}, expected 14 separable up and 14 down")
+    check(modconvs == {"modconv": 15, "fused_epilogue": 14} and flrelus == {"filtered_lrelu": 15},
+          f"modulated convs {modconvs} and filtered leaky ReLUs {flrelus} a forward, expected "
+          f"15 (14 one-pass) and 15")
+    check(img.shape == (BATCH, 1024, 1024, 3) and img.dtype == torch.float32,
+          f"image {tuple(img.shape)} {img.dtype}")
+    check(bool(torch.isfinite(img).all()), "the StyleGAN3 image is not finite")
+    print(f"[24 sg3] StyleGAN3-T forward [{BATCH}, 512] → {list(img.shape)} (bf16 from rate "
+          f"128, f32 with TF32 off below): launches {launches}, FIR kernels {dict(fir)}, "
+          f"modulated convs {modconvs}, {flrelus}; image std {float(img.std()):.3f}; forward "
+          f"{fwd_ms:.2f} ms (CUDA events, 3 eager forwards); peak memory {gib:.2f} GiB above "
+          f"what earlier phases hold; {card}")
+    del G, img
+    torch.cuda.empty_cache()
+    print(f"[24 sg3] phase 24a took {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+def sg3_calls():
+    """The 28 FIR calls of a StyleGAN3-T forward at 1024², in order: (layer,
+    stage, the dtype the forward runs it in, the kernel csrc/upfirdn2d.cu
+    launches for it)."""
+    from pggan_tpu_torch.models.stylegan3 import layer_schedule
+
+    reduced = layer_schedule()["reduced"]
+    return [(layer, stage, torch.bfloat16 if reduced[layer] else torch.float32,
+             f"upfirdn2d_sep_{stage}_kernel") for layer in range(14) for stage in ("up", "down")]
+
+
+def check_sg3_stages(resample, gen):
+    """Phase 24b: every one of the 28 FIR calls of a StyleGAN3-T forward at
+    1024², at the forward's batch (16) and dtype (f32 to layer 4, bf16 from
+    layer 5), on fresh N(0, 1) inputs: the profiler, over the 28 calls in
+    order, names the one kernel each launches (the separable up or down
+    kernel, with one channel a thread or a pair, as C is odd or even); then
+    each output against the composition `upfirdn2d_plain` run in f32 on the
+    card, four images at a time: bf16 within one rounding of each value
+    (2⁻⁸ of it) plus 1e-5 of the largest, f32 within 1e-5 of the largest
+    (the kernels keep the taps in f32 and sum along x, then y; the
+    composition sums the 2-D outer product in cuDNN's order). Returns layer
+    10's up stage's max |diff| (bf16, the kernels line's shape)."""
+    t_phase = time.perf_counter()
+    calls, chunk, row_err = sg3_calls(), 4, None
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad():
+        with torch.profiler.profile(activities=activities) as prof:
+            for layer, stage, dt, _ in calls:
+                x, f, kw = sg3_stage(layer, stage, BATCH, dt, gen)
+                resample.upfirdn2d(x, f, **kw)
+                del x
+            torch.cuda.synchronize()
+        launched = sorted((e.time_range.start, e.name) for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and "upfirdn2d" in e.name)
+        forms = [re.search(r"upfirdn2d_\w+_kernel<[^>]*>", name).group(0)
+                 for _, name in launched]
+        check(len(forms) == len(calls) and all(
+            call[3] in form for call, form in zip(calls, forms)),
+            f"the 28 FIR calls launched {forms}, expected {[call[3] for call in calls]}")
+        torch.cuda.empty_cache()
+        for (layer, stage, dt, _), form in zip(calls, forms):
+            x, f, kw = sg3_stage(layer, stage, BATCH, dt, gen)
+            got = resample.upfirdn2d(x, f, **kw)
+            diff_max = scale = excess = 0.0
+            for i in range(0, BATCH, chunk):
+                want = resample.upfirdn2d_plain(x[i:i + chunk].float(), f, **kw)
+                diff = (got[i:i + chunk].float() - want).abs()
+                diff_max = max(diff_max, float(diff.max()))
+                scale = max(scale, float(want.abs().max()))
+                if dt == torch.bfloat16:
+                    excess = max(excess, float((diff - SG3_BF16_REL * want.abs()).max()))
+                del want, diff
+            if dt == torch.bfloat16:
+                check(excess <= SG3_ABS_OF_MAX * scale,
+                      f"layer {layer} {stage} bf16: |diff| exceeds 2^-8 of the value by "
+                      f"{excess:.3g}, bound {SG3_ABS_OF_MAX * scale:.3g}")
+            else:
+                check(diff_max <= SG3_F32_REL * scale,
+                      f"layer {layer} {stage} f32: |diff| {diff_max:.3g} of {scale:.3g}")
+            if (layer, stage) == SG3_STAGES[0]:
+                row_err = diff_max
+            print(f"[24 sg3] layer {layer} {stage} {list(x.shape)} {str(dt)[6:]} taps "
+                  f"{f.numel()} → {list(got.shape)}: {form}; vs the f32 composition max |diff| "
+                  f"{diff_max:.3g} of {scale:.3g}")
+            del x, got
+            torch.cuda.empty_cache()
+    print(f"[24 sg3] the 28 calls at batch {BATCH} match the f32 composition; kernels "
+          f"{dict(collections.Counter(forms))}; phase 24b took "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    return row_err
+
+
+def sg3_library(x, f, kw):
+    """cuDNN's depthwise call that computes this FIR stage, the filter's 2-D
+    outer product as its weight in x's dtype: `F.conv_transpose2d` with the
+    stride `up` for an up stage, its symmetric `padding` cropping what the
+    stage's pads crop (both crops must be equal), or `F.conv2d` with the
+    stride `down` for a down stage with no pads. None where it cannot."""
+    c, fh = x.shape[1], f.numel()
+    taps = torch.outer(f, f) * kw.get("gain", 1.0)
+    up, down = kw.get("up", 1), kw.get("down", 1)
+    if up > 1:
+        x0, x1, y0, y1 = kw["padding"]
+        crops = {fh - 1 - x0, fh - up - x1, fh - 1 - y0, fh - up - y1}
+        if len(crops) != 1 or min(crops) < 0:
+            return None
+        crop = crops.pop()
+        w = taps.to(x.dtype).expand(c, 1, fh, fh).contiguous()
+        return lambda: F.conv_transpose2d(x, w, stride=up, padding=crop, groups=c)
+    if kw.get("padding", 0):
+        return None
+    # conv2d correlates; upfirdn2d without flip_filter convolves
+    w = taps.flip([0, 1]).to(x.dtype).expand(c, 1, fh, fh).contiguous()
+    return lambda: F.conv2d(x, w, stride=down, groups=c)
+
+
+def time_sg3_stages(kernels, resample, gen, card):
+    """Phase 24c: layer 10's up-4 stage and layer 11's down-2 stage at batch
+    16 in bf16, as the forward runs them: the kernel's call ms (CUDA
+    events), its device ms (a CUDA graph) against the bound of its bytes;
+    the composition's and cuDNN's depthwise call (`sg3_library`) at the
+    same shape, timed once after one warm-up call (seconds each), or None
+    where the composition runs out of the card's memory. Returns layer 10's
+    (call ms, device ms, composition ms, cuDNN's ms, bytes, shape)."""
+    rows = {}
+    with torch.no_grad():
+        for layer, stage in SG3_STAGES:
+            x, f, kw = sg3_stage(layer, stage, BATCH, torch.bfloat16, gen)
+            kernel = functools.partial(resample.upfirdn2d, x, f, **kw)
+            out = kernel()
+            nbytes = (x.numel() + out.numel()) * x.element_size()
+            call = time_ms(kernel, iters=5)
+            dev = device_ms(kernel, kernels, "upfirdn2d", calls=3)
+            library = sg3_library(x, f, kw)
+            lib = None if library is None else time_ms(library, iters=1, warmup=1)
+            lib_note = "cuDNN cannot compute it"
+            if library is not None:
+                theirs = library()
+                check(theirs.shape == out.shape, f"cuDNN gives {tuple(theirs.shape)}, the "
+                                                 f"kernel {tuple(out.shape)}")
+                # four images at a time: two f32 copies of the whole would not fit
+                gap = max(float((theirs[i:i + 4].float() - out[i:i + 4].float()).abs().max())
+                          for i in range(0, BATCH, 4))
+                lib_note = (f"cuDNN's depthwise {'conv_transpose2d' if stage == 'up' else 'conv2d'}"
+                            f" {lib:.2f} ms ({lib / call:.1f}x), max |diff| {gap:.3g} from the "
+                            f"kernel")
+                del theirs
+            del out
+            torch.cuda.empty_cache()
+            try:
+                plain = time_ms(functools.partial(resample.upfirdn2d_plain, x, f, **kw), iters=1,
+                                warmup=1)
+                plain_note = f"the composition {plain:.2f} ms ({plain / call:.1f}x)"
+            except torch.cuda.OutOfMemoryError:
+                plain = None
+                plain_note = "the composition runs out of the card's memory at this shape"
+            torch.cuda.empty_cache()
+            b_ms, _ = bound_ms(nbytes, 0)
+            rows[(layer, stage)] = (call, dev, plain, lib, nbytes, tuple(x.shape))
+            print(f"[24 times] layer {layer} {stage} stage {list(x.shape)} bf16 taps "
+                  f"{f.numel()}: call {call:.4f} ms, device {dev:.4f} ms = {100 * b_ms / dev:.1f} "
+                  f"% of its bound {b_ms:.4f} ms ({nbytes / 1e9:.3f} GB read + written, "
+                  f"{nbytes / dev / 1e6:.0f} GB/s); {plain_note}; {lib_note}; {card}")
+            del x, kernel, library
+            torch.cuda.empty_cache()
+    return rows[SG3_STAGES[0]]
+
+
+def run_sg3_phase(kernels, card):
+    """Phase 24: StyleGAN3-T's path (24a-c). Returns (launches a forward,
+    layer 10's up-4 stage's max |diff| from the f32 composition in bf16 at
+    batch 16, its call, device and composition ms, cuDNN's ms, bytes,
+    shape)."""
+    from pggan_tpu_torch.ops import resample
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SG3_SEED)
+    launches = run_sg3_forward(kernels, card, gen)
+    err = check_sg3_stages(resample, gen)
+    call, dev, plain, lib, nbytes, shape = time_sg3_stages(kernels, resample, gen, card)
+    print(f"[24 sg3] phase 24 took {time.perf_counter() - t_phase:.2f} s")
+    return launches, err, (call, dev, plain), lib, nbytes, shape
 
 
 def main() -> int:
@@ -4276,6 +4548,11 @@ def main() -> int:
      fir_bytes) = run_upfirdn_phase(kernels, card)
     max_err["upfirdn2d"] = {torch.float32: fir_err}
 
+    # ---- StyleGAN3-T: its filtered leaky ReLUs through the separable kernels ----
+    sg3_launches, sg3_err, sg3_times, sg3_lib_ms, sg3_bytes, sg3_shape = run_sg3_phase(kernels,
+                                                                                       card)
+    max_err["upfirdn2d (separable)"] = {torch.float32: sg3_err}
+
     # Every kernel of the four paths at its largest f32 shape on them, but
     # bias_lrelu_gain and upfirdn2d at their largest StyleGAN2 call in bf16
     # (phases 22c and 23); `launches` is the training run's count (the
@@ -4302,9 +4579,12 @@ def main() -> int:
         ("bias_lrelu_gain", "bias_act.cu", ":97", epi[5], epi[:3], epi[4],
          5 * int(np.prod(epi[5])), None),
         ("upfirdn2d", "upfirdn2d.cu", None, fir_shape, fir_times, fir_bytes, 0, fir_lib_ms),
+        ("upfirdn2d (separable)", "upfirdn2d.cu", None, sg3_shape, sg3_times, sg3_bytes, 0,
+         sg3_lib_ms),
     ]
     path_launches = dict(train_launches, bias_lrelu_gain=sg2_launches["bias_lrelu_gain"],
                          upfirdn2d=fir_launches)
+    path_launches["upfirdn2d (separable)"] = sg3_launches["upfirdn2d"]
     report = []
     for (name, source, line, shape, (kernel_ms, kernel_dev, plain_ms), nbytes, flops,
          lib_ms) in entries:
@@ -4319,14 +4599,17 @@ def main() -> int:
                        "bound_by": b_by, "library_ms": lib_ms,
                        "chunked_launches": chunk_launches.get(name, 0),
                        "shape": list(shape),
-                       "dtype": "bfloat16" if name in ("bias_lrelu_gain", "upfirdn2d")
+                       "dtype": "bfloat16" if name.startswith(("bias_lrelu_gain", "upfirdn2d"))
                        else "float32"})
     # bias_lrelu_gain's row is the one-pass epilogue (demodulation, noise,
     # bias, lrelu, clamp) beside the two passes it replaced; upfirdn2d's is
     # its bf16 timed call: its error against the composition at that call,
-    # in bf16's units in the last place too
-    report[-2]["two_pass_device_ms"] = epi[3]
-    report[-1]["max_ulps"] = fir_ulps
+    # in bf16's units in the last place too; the separable kernels' row is
+    # StyleGAN3-T's layer 10 up-4 stage in bf16 at batch 16 (phase 24c): its
+    # max_abs_err against the f32 composition there (phase 24b), its
+    # library_ms cuDNN's depthwise conv_transpose2d
+    report[-3]["two_pass_device_ms"] = epi[3]
+    report[-2]["max_ulps"] = fir_ulps
     print(json.dumps({"kernels": report}))
     print(card)
     # the cards the run used: one, and every visible card on the spawn route

@@ -147,6 +147,41 @@ def stylegan2_args(values: Dict[str, Any]) -> Dict[str, Any]:
     return {key: values.get(key, default) for key, default in STYLEGAN2_DEFAULTS.items()}
 
 
+# The keys of a StyleGAN3-T generator (`model_id: stylegan3`,
+# `models/stylegan3.py`), at `stylegan3-t`'s values at 1024² (Karras et al.
+# 2021; NVIDIA's stylegan3 `train.py --cfg=stylegan3-t`: cbase 32768, cmax
+# 512, map 2, num_fp16_res 4, conv_clamp 256; `networks_stylegan3.py`'s
+# `SynthesisNetwork` and `SynthesisLayer` defaults). Out of `_DEFAULTS` for
+# the same reason; `stylegan3_args` lays a checkpoint's args over them.
+STYLEGAN3_DEFAULTS: Dict[str, Any] = {
+    "z_dim": 512,
+    "w_dim": 512,
+    "mapping_layers": 2,
+    "mapping_lr_multiplier": 0.01,
+    "resolution": 1024,
+    "channel_base": 32768,            # channels rint(min(channel_base / 2 / cutoff, channel_max))
+    "channel_max": 512,
+    "num_layers": 14,
+    "num_critical": 2,
+    "first_cutoff": 2.0,
+    "first_stopband": 2 ** 2.1,
+    "last_stopband_rel": 2 ** 0.3,
+    "margin_size": 10,
+    "output_scale": 0.25,
+    "num_fp16_res": 4,                # layers at the highest sampling rates in bfloat16
+    "conv_clamp": 256,
+    "conv_kernel": 3,
+    "filter_size": 6,
+    "lrelu_upsampling": 2,
+    "output_dim": 3,
+}
+
+
+def stylegan3_args(values: Dict[str, Any]) -> Dict[str, Any]:
+    """STYLEGAN3_DEFAULTS with the keys of `values` that it names laid over."""
+    return {key: values.get(key, default) for key, default in STYLEGAN3_DEFAULTS.items()}
+
+
 def default_depths(max_scale: int) -> list:
     """The reference's depth law (configs.yaml's depths generalised;
     `pggan_tpu/config.py:180-189`): 512 through scale 3, then halved each

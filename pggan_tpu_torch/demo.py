@@ -5,7 +5,9 @@ package's npz format with a strict key-set check, draws latents, runs the
 forward pass, denormalises ×0.5+0.5 → [0, 255] and writes result_{i}.jpg.
 A checkpoint whose args name `model_id: stylegan2` is sampled through the
 same loop from StyleGAN2's generator (`models/stylegan2.py`), built from the
-args' StyleGAN2 keys (`config.STYLEGAN2_DEFAULTS`).
+args' StyleGAN2 keys (`config.STYLEGAN2_DEFAULTS`); one with `model_id:
+stylegan3` from StyleGAN3-T's (`models/stylegan3.py`, the args' keys over
+`config.STYLEGAN3_DEFAULTS`).
 
     python -m pggan_tpu_torch.demo --ckpt_id my_run [--ckpt_step 30000]
         [--n_samples 16] [--batch_size 16] [--seed 0] [--output_dir DIR]
@@ -27,8 +29,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from pggan_tpu_torch.config import Config, stylegan2_args
-from pggan_tpu_torch.models import stylegan2
+from pggan_tpu_torch.config import Config, stylegan2_args, stylegan3_args
+from pggan_tpu_torch.models import stylegan2, stylegan3
 from pggan_tpu_torch.models.generator import Generator, load_params_from_jax
 from pggan_tpu_torch.utils import checkpoint as ckpt_lib
 from pggan_tpu_torch.utils.image import denorm_to_uint8, write_jpeg
@@ -41,9 +43,10 @@ def load_generator(save_root: str, ckpt_id: str, ckpt_step: Optional[int] = None
     and load its weights strictly (`demo.py:23-50`). `ema=True` loads the
     smoothed weights (`Gema`). Returns (G in eval mode, args, scale, alpha).
 
-    For `model_id: stylegan2`, G is StyleGAN2's generator, the scale that of
-    its resolution (log2(resolution) − 2) and ψ = 1 (no truncation) stands
-    in alpha's place: either G samples as `G(z, alpha)`."""
+    For `model_id: stylegan2` or `stylegan3`, G is StyleGAN2's or
+    StyleGAN3-T's generator, the scale that of its resolution (log2
+    (resolution) − 2) and ψ = 1 (no truncation) stands in alpha's place:
+    every G samples as `G(z, alpha)`."""
     name = "Gema" if ema else "G"
     result = ckpt_lib.load_checkpoint(save_root, ckpt_id, name, ckpt_step)
     if result is None:
@@ -62,6 +65,13 @@ def load_generator(save_root: str, ckpt_id: str, ckpt_step: Optional[int] = None
             fmap_max=int(a["fmap_max"]), num_fp16_res=int(a["num_fp16_res"]),
             conv_clamp=a["conv_clamp"], img_channels=int(a["output_dim"]))
         stylegan2.load_params(generator, arrays)
+        scale = int(a["resolution"]).bit_length() - 3
+        return generator.to(device).eval(), args, scale, 1.0
+    if args.model_id == "stylegan3":
+        a = stylegan3_args(args)
+        img_channels = int(a.pop("output_dim"))
+        generator = stylegan3.StyleGAN3Generator(**a, img_channels=img_channels)
+        stylegan3.load_params(generator, arrays)
         scale = int(a["resolution"]).bit_length() - 3
         return generator.to(device).eval(), args, scale, 1.0
     scale = int(meta["schedule"]["scale_index"])
@@ -102,7 +112,7 @@ def main(argv=None) -> int:
     os.makedirs(out_dir, exist_ok=True)
 
     if ns.export:
-        if args.model_id == "stylegan2":
+        if args.model_id in ("stylegan2", "stylegan3"):
             raise SystemExit("--export writes the PGGAN generator's artifact only")
         from pggan_tpu_torch.export import export_generator
         # G carries the checkpoint's slope, pixel norm and last activation
@@ -110,7 +120,8 @@ def main(argv=None) -> int:
                          path=ns.export, device=device)
         print(f"wrote serving artifact (scale {scale}, alpha {alpha}) to {ns.export}")
 
-    latent_dim = generator.z_dim if args.model_id == "stylegan2" else int(args.latent_dim)
+    latent_dim = (generator.z_dim if args.model_id in ("stylegan2", "stylegan3")
+                  else int(args.latent_dim))
     rng = torch.Generator(device=device).manual_seed(ns.seed)
     written = 0
     with torch.no_grad():

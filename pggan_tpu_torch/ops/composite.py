@@ -5,9 +5,11 @@
 convolution weights are HWIO, as in the JAX package. `filtered_lrelu`'s
 activation is `bias_act`'s leaky ReLU, so on a CUDA tensor, with or without a
 clamp, it is one launch of the `bias_lrelu_gain` kernel; its up and down
-stages, and `conv2d_resample`'s, are `upfirdn2d` (one launch of its kernel
-each on a CUDA tensor inside the kernel's envelope); the rest is cuDNN and
-torch ops. Everything is differentiable to any order.
+stages, and `conv2d_resample`'s, are `upfirdn2d` (one launch of a kernel each
+on a CUDA tensor inside the kernels' envelope, which holds StyleGAN3's long
+1-D filters and up 4); the rest is cuDNN and torch ops. Each `filtered_lrelu`
+call is a `stylegan3.filtered_lrelu` profiler range, counted in
+`counts["filtered_lrelu"]`. Everything is differentiable to any order.
 """
 
 from __future__ import annotations
@@ -17,10 +19,21 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from pggan_tpu_torch.ops.basic import bias_act
 from pggan_tpu_torch.ops.kernels import SQRT2
 from pggan_tpu_torch.ops.resample import downsample2d, upfirdn2d, upsample2d
+
+FILTERED_LRELU_SPAN = "stylegan3.filtered_lrelu"
+
+# `filtered_lrelu` calls since the last `reset_counts()`.
+counts = {"filtered_lrelu": 0}
+
+
+def reset_counts() -> None:
+    for name in counts:
+        counts[name] = 0
 
 
 def filtered_lrelu(x: torch.Tensor, fu: Optional[torch.Tensor] = None,
@@ -30,16 +43,22 @@ def filtered_lrelu(x: torch.Tensor, fu: Optional[torch.Tensor] = None,
     """bias → up-filter → leaky ReLU (gain, clamp) → down-filter
     (`composite.py:36-62`). The bias is added before the up stage; `padding`
     is applied around the up stage as given (no centring), and the up stage
-    carries the up² gain."""
-    if b is not None:
-        x = x + b.view(1, -1, 1, 1).to(x.dtype)
-    px = padding if isinstance(padding, int) else max(abs(p) for p in padding)
-    if up > 1 or fu is not None or px:
-        x = upfirdn2d(x, fu, up=up, padding=padding, gain=float(up * up))
-    x = bias_act(x, None, act="lrelu", alpha=slope, gain=gain, clamp=clamp)
-    if down > 1 or fd is not None:
-        x = upfirdn2d(x, fd, down=down)
-    return x
+    carries the up² gain (a 1-D filter's outer product carries it whole).
+    Without an up stage the bias goes into the activation's one pass."""
+    counts["filtered_lrelu"] += 1
+    with record_function(FILTERED_LRELU_SPAN):
+        px = padding if isinstance(padding, int) else max(abs(p) for p in padding)
+        upsample = up > 1 or fu is not None or px
+        if b is not None and upsample:
+            x = x + b.view(1, -1, 1, 1).to(x.dtype)
+            b = None
+        if upsample:
+            x = upfirdn2d(x, fu, up=up, padding=padding, gain=float(up * up))
+        x = bias_act(x, None if b is None else b.to(x.dtype), act="lrelu", alpha=slope,
+                     gain=gain, clamp=clamp)
+        if down > 1 or fd is not None:
+            x = upfirdn2d(x, fd, down=down)
+        return x
 
 
 def conv2d_resample(x: torch.Tensor, w: torch.Tensor, f: Optional[torch.Tensor] = None,

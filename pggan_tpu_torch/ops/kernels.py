@@ -421,7 +421,7 @@ def upfirdn2d(x: torch.Tensor, f: Optional[torch.Tensor], up: Tuple[int, int],
     channels_last [N, C, H, W] CUDA tensor, f an f32 filter on x's card
     (1-D: its outer product; None: one tap of 1), `up`, `down` and the
     leading pads `pad0` as (x, y), the output's (OH, OW) as the caller
-    computed them. The caller keeps to the kernel's envelope
+    computed them. The caller keeps to the kernels' envelope
     (`ops.resample.envelope_refusal`); the C side refuses what lies
     outside it."""
     _check_dtype(x)

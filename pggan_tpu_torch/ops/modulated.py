@@ -18,13 +18,23 @@ through the FIR filter (`upsample2d`, padding as NVIDIA's `conv2d_resample`
 takes it), then convolved without padding.
 
 A caller may pass the layer's epilogue (`act`, `bias`, `clamp`: StyleGAN2's
-`bias_act(lrelu, gain √2, clamp)`). With demodulation and a leaky ReLU, where
-autograd does not record the call and no program is being exported, the
-demodulation, noise, bias, activation and clamp are one pass over the conv's
-output, `kernels.modconv_epilogue` (the bias-act kernel on a CUDA tensor),
-with d, noise and the bias in f32 and one rounding to x's dtype. Otherwise
-they are composed: d and noise rounded to x's dtype, `torch.addcmul`, then
-`bias_act` with the bias in x's dtype.
+`bias_act(lrelu, gain √2, clamp)`, or StyleGAN3's `linear`, x·d + b, before
+its filtered leaky ReLU). With demodulation and a leaky ReLU or `linear`,
+where autograd does not record the call and no program is being exported,
+the demodulation, noise, bias, activation and clamp are one pass over the
+conv's output, `kernels.modconv_epilogue` (the bias-act kernel on a CUDA
+tensor; `linear` is its leaky ReLU of slope 1 and gain 1), with d, noise and
+the bias in f32 and one rounding to x's dtype. Otherwise they are composed:
+d and noise rounded to x's dtype, `torch.addcmul`, then `bias_act` with the
+bias in x's dtype.
+
+StyleGAN3 (Karras et al. 2021, arXiv:2106.12423; NVIDIA's
+`networks_stylegan3.modulated_conv2d`) adds two options. `prenormalize`
+scales each output channel's weights and the styles (over the whole batch)
+to unit RMS before they meet, in f32; demodulation cancels both up to its
+eps. `input_gain` (a scalar, StyleGAN3's rsqrt of the layer's input
+magnitude) multiplies the styles after d is formed from them, so it scales
+the output as NVIDIA's per-sample weights do.
 
 x is a logical NCHW tensor in `torch.channels_last` memory, in the block's
 compute dtype; weight ([O, I, kh, kw]) and styles ([B, I]) are f32 and are
@@ -66,16 +76,24 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor, styles: torch.Tensor
                      noise: Optional[torch.Tensor] = None,
                      flip_weight: bool = True, act: Optional[str] = None,
                      bias: Optional[torch.Tensor] = None,
-                     clamp: Optional[float] = None) -> torch.Tensor:
-    """[B, I, H, W] → [B, O, H·up, W·up]. `flip_weight=False` convolves
-    (NVIDIA's up = 2 layers), True correlates; `noise` ([H·up, W·up]) is
-    added after the demodulation. With `act`, the layer's epilogue
-    `bias_act(·, bias, act, clamp=clamp)` follows, as one pass where the
-    module docstring says."""
+                     clamp: Optional[float] = None, prenormalize: bool = False,
+                     input_gain=None) -> torch.Tensor:
+    """[B, I, H, W] → [B, O, H·up, W·up] (+ 2·padding − k + 1 a side for a
+    k×k kernel). `flip_weight=False` convolves (NVIDIA's up = 2 layers),
+    True correlates; `noise` ([H·up, W·up]) is added after the
+    demodulation. With `act`, the layer's epilogue `bias_act(·, bias, act,
+    clamp=clamp)` follows, as one pass where the module docstring says;
+    `prenormalize` and `input_gain` are StyleGAN3's."""
     counts["modconv"] += 1
     with record_function(MODCONV_SPAN):
         batch, dt = x.shape[0], x.dtype
-        x = x * styles.to(dt).reshape(batch, -1, 1, 1)
+        if prenormalize:
+            weight = weight.float()
+            weight = weight * weight.square().mean(dim=[1, 2, 3], keepdim=True).rsqrt()
+            styles = styles.float()
+            styles = styles * styles.square().mean().rsqrt()
+        scale = styles if input_gain is None else styles * input_gain
+        x = x * scale.to(dt).reshape(batch, -1, 1, 1)
         w = weight.to(dt)
         if not flip_weight:
             w = w.flip([2, 3])
@@ -88,11 +106,14 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor, styles: torch.Tensor
             # d [B, O] = rsqrt(Σ_i s_bi² Σ_k w_oik² + eps), one f32 product
             d = torch.rsqrt(styles.float().square() @ weight.float().square().sum(dim=[2, 3]).t()
                             + EPS)
-            if act == "lrelu" and not torch.compiler.is_exporting() and not (
+            if act in ("lrelu", "linear") and not torch.compiler.is_exporting() and not (
                     torch.is_grad_enabled() and any(
                         t is not None and t.requires_grad
                         for t in (x, weight, styles, noise, bias))):
                 counts["fused_epilogue"] += 1
+                if act == "linear":
+                    return kernels.modconv_epilogue(x, d, noise, bias, slope=1.0, gain=1.0,
+                                                    clamp=clamp)
                 return kernels.modconv_epilogue(x, d, noise, bias, clamp=clamp)
             d = d.to(dt).reshape(batch, -1, 1, 1)
             # x·d + noise in one pass, as NVIDIA's `fma`

@@ -6,21 +6,29 @@ filters are f32 [fh, fw] tensors (a 1-D filter is applied as its outer
 product). upfirdn2d is zero-insertion upsampling, padding (negative pads
 crop), an FIR filter and decimation. The device of the input picks the
 route, as in `ops.kernels`:
-  - a CUDA tensor launches the polyphase kernel (`csrc/upfirdn2d.cu`,
-    counted in `ops.kernels.launches["upfirdn2d"]`), or raises a
-    ValueError that names the reason where the call lies outside the
-    kernel's envelope (`envelope_refusal`: f32 or bf16, channels_last-dense,
-    up and down 1 or 2 on each axis, at most 8 taps an axis);
+  - a CUDA tensor launches one of the kernels of `csrc/upfirdn2d.cu`
+    (counted in `ops.kernels.launches["upfirdn2d"]`), or raises a
+    ValueError that names the reason where the call lies outside their
+    envelope (`envelope_refusal`: f32 or bf16, channels_last-dense, up 1,
+    2 or 4 and down 1 or 2 on each axis, a 2-D filter of at most 8 taps an
+    axis or a 1-D one of at most 24). Calls with up 1 or 2 and at most 8
+    taps an axis (StyleGAN2's) run the polyphase kernels, whose taps are
+    rounded to x's dtype as the composition's are; the others (StyleGAN3's
+    long 1-D filters, up 4) keep a 1-D filter's taps in f32. Which kernel
+    a call launches is the C side's choice (`csrc/upfirdn2d.cu`); the
+    profiler names it;
   - any other tensor runs the composition `upfirdn2d_plain`: the zero
     insertion is a reshape and a pad of the NHWC view, the filter a
     depthwise `F.conv2d` with the stride as the decimation, accumulated in
     f32 as the JAX package's `preferred_element_type` does.
-Both round the taps to x's dtype, sum in f32 and round once to x's dtype.
+Both sum in f32 and round once to x's dtype.
 Every op follows its input's device and is differentiable to any order:
 where autograd records, `upfirdn2d` is an `autograd.Function` whose
 backward is `upfirdn2d` of the gradient with up and down swapped, the pads
 transposed and the filter flipped (NVIDIA's rule in stylegan2-ada-pytorch's
-`torch_utils/ops/upfirdn2d.py`), so each order runs the same route.
+`torch_utils/ops/upfirdn2d.py`), so each order runs the same route. The
+gradient of an up-4 call is a down-4 call, which the kernels do not take:
+on a CUDA tensor it raises (StyleGAN3's up 4 serves sampling alone).
 """
 
 from __future__ import annotations
@@ -36,9 +44,11 @@ _PadT = Union[int, Sequence[int]]
 _Pair = Tuple[int, int]
 _Pads = Tuple[int, int, int, int]
 
-_MAX_TAPS = 8            # the kernel's taps an axis
-_MAX_GRID = 65535        # the kernel's grid: output rows, batch
-_MAX_ROW = 2 ** 30       # the kernel's threads a row: at most output columns x channels
+_MAX_TAPS = 8            # the kernels' taps an axis of a 2-D filter
+_MAX_TAPS_1D = 24        # the kernels' taps of a 1-D filter
+_UPS, _DOWNS = (1, 2, 4), (1, 2)   # the kernels' up and down factors an axis
+_MAX_GRID = 65535        # the kernels' grid: output rows (strips), batch
+_MAX_ROW = 2 ** 30       # the kernels' threads a row: at most output columns x channels
 
 
 def _parse_scaling(s) -> Tuple[int, int]:
@@ -104,36 +114,42 @@ def _output_size(x: torch.Tensor, fh: int, fw: int, up: _Pair, down: _Pair,
 
 def envelope_refusal(x: torch.Tensor, f: Optional[torch.Tensor], up: _Pair, down: _Pair,
                      out_hw: _Pair) -> Optional[str]:
-    """Why the upfirdn2d kernel cannot compute this call, or None where it
-    can: x f32 or bf16, 4-D and channels_last-dense, not empty; up and down
-    (x, y) 1 or 2 each; f None or a contiguous 1-D or 2-D f32 filter on x's
-    device of at most 8 taps an axis that does not require grad; an output
-    (OH, OW) whose rows, batch and row length fit the kernel's grid. Reads
-    only metadata, so it answers for a tensor on any device."""
+    """Why the upfirdn2d kernels cannot compute this call, or None where
+    they can: x f32 or bf16, 4-D and channels_last-dense, not empty; up
+    (x, y) 1, 2 or 4 each and down 1 or 2; f None, a contiguous 1-D f32
+    filter of at most 24 taps or a 2-D one of at most 8 taps an axis, on
+    x's device, that does not require grad; an output (OH, OW) whose rows, batch and row
+    length fit the kernels' grid. Reads only metadata, so it answers for a
+    tensor on any device."""
     if x.dtype not in (torch.float32, torch.bfloat16):
-        return f"x is {x.dtype}, the kernel takes float32 or bfloat16"
+        return f"x is {x.dtype}, the kernels take float32 or bfloat16"
     if x.ndim != 4 or x.numel() == 0:
-        return f"x has shape {tuple(x.shape)}, the kernel takes a non-empty 4-D tensor"
+        return f"x has shape {tuple(x.shape)}, the kernels take a non-empty 4-D tensor"
     if not x.is_contiguous(memory_format=torch.channels_last):
-        return (f"x has strides {x.stride()} for shape {tuple(x.shape)}, the kernel takes "
+        return (f"x has strides {x.stride()} for shape {tuple(x.shape)}, the kernels take "
                 "channels_last-contiguous (NHWC) memory")
-    if any(s not in (1, 2) for s in (*up, *down)):
-        return f"up {up} and down {down}: the kernel takes 1 or 2 on each axis"
+    if any(s not in _UPS for s in up):
+        return f"up {up}: the kernels take 1, 2 or 4 on each axis"
+    if any(s not in _DOWNS for s in down):
+        return f"down {down}: the kernels take 1 or 2 on each axis"
     if f is not None and (f.dtype != torch.float32 or f.ndim not in (1, 2)
                           or f.device != x.device or not f.is_contiguous()):
-        return (f"the filter is a {f.ndim}-D {f.dtype} tensor on {f.device}, the kernel takes "
+        return (f"the filter is a {f.ndim}-D {f.dtype} tensor on {f.device}, the kernels take "
                 "a contiguous 1-D or 2-D float32 filter on x's device")
     if f is not None and f.requires_grad:
-        return "the filter requires grad, and the kernel has no gradient for it"
+        return "the filter requires grad, and the kernels have no gradient for it"
     fh, fw = _filter_size(f)
-    if max(fh, fw) > _MAX_TAPS:
-        return f"a {fh}x{fw} filter, the kernel takes at most {_MAX_TAPS} taps an axis"
+    if f is not None and f.ndim == 1 and fh > _MAX_TAPS_1D:
+        return f"a 1-D filter of {fh} taps, the kernels take at most {_MAX_TAPS_1D}"
+    if f is not None and f.ndim == 2 and max(fh, fw) > _MAX_TAPS:
+        return (f"a {fh}x{fw} 2-D filter, the kernels take at most {_MAX_TAPS} taps an axis "
+                f"(a 1-D filter up to {_MAX_TAPS_1D})")
     oh, ow = out_hw
     if min(oh, ow) < 1:
         return f"an empty output {oh}x{ow}"
     if max(oh, x.shape[0]) > _MAX_GRID or ow * x.shape[1] > _MAX_ROW:
         return (f"batch {x.shape[0]}, {oh} output rows or {ow}x{x.shape[1]} values a row "
-                f"exceed the kernel's grid ({_MAX_GRID} rows and batch, {_MAX_ROW} a row)")
+                f"exceed the kernels' grid ({_MAX_GRID} rows and batch, {_MAX_ROW} a row)")
     return None
 
 

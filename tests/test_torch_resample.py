@@ -235,8 +235,18 @@ ROUTE_CASES = [       # (id, x's dtype or layout, taps, kwargs, the refusal's wo
     ("per axis", None, [[1, 2, 0], [0, 1, 3]],
      dict(up=(2, 1), down=(1, 2), padding=(-1, 2, 1, -2)), None),
     ("no filter", None, None, dict(padding=(0, -1, 1, 0)), None),
-    ("up4", None, None, dict(up=4, padding=(0, -1, 0, -1)), "1 or 2 on each axis"),
-    ("9 taps", None, list(range(1, 10)), dict(padding=4), "at most 8 taps"),
+    ("up4", None, None, dict(up=4, padding=(0, -1, 0, -1)), None),
+    ("9 taps", None, list(range(1, 10)), dict(padding=4), None),
+    ("StyleGAN3 up 4, 24 taps", None, list(range(1, 25)), dict(up=4, padding=(-6, -9, -6, -9)),
+     None),
+    ("StyleGAN3 up 2, 12 taps", None, list(range(1, 13)), dict(up=2, padding=(9, 8, 9, 8)), None),
+    ("StyleGAN3 down 2, 12 taps, negative pad", None, list(range(1, 13)),
+     dict(down=2, padding=(1, -1, 2, -2)), None),
+    ("down4", None, list(range(1, 9)), dict(down=4, padding=(3, 4, 3, 4)),
+     "1 or 2 on each axis"),
+    ("up8", None, None, dict(up=8), "1, 2 or 4 on each axis"),
+    ("25 taps 1-D", None, list(range(1, 26)), dict(padding=12), "at most 24"),
+    ("9x9 2-D", None, [[1.0] * 9] * 9, dict(padding=4), "at most 8 taps an axis"),
     ("nchw", torch.contiguous_format, [1, 3, 3, 1], dict(up=2, padding=(2, 1, 2, 1)),
      "channels_last"),
     ("f16", torch.float16, [1, 3, 3, 1], dict(up=2, padding=(2, 1, 2, 1)), "float32 or bfloat16"),
@@ -250,7 +260,7 @@ def test_upfirdn2d_dispatch_on_a_cuda_tensor(monkeypatch, name, form, taps, kw, 
     kernel inside the envelope, with the composition's output size and the
     leading pads, and outside it raises the reason, never running the
     composition."""
-    x = _nchw(_rand((2, 6, 5, 8), seed=23)).contiguous(memory_format=torch.channels_last)
+    x = _nchw(_rand((2, 20, 18, 8), seed=23)).contiguous(memory_format=torch.channels_last)
     if isinstance(form, torch.dtype):
         x = x.to(form)
     elif form is not None:
@@ -303,6 +313,13 @@ ENVELOPE_CASES = [    # (id, x, f, up, down, inside)
     ("8 taps 1-D", _cl(2, 8, 9, 9), resample.setup_filter(list(range(1, 9)), device="cpu"),
      (1, 1), (2, 2), True),
     ("9 taps", _cl(2, 8, 9, 9), torch.ones(9, 9), (1, 1), (1, 1), False),
+    ("up4", _cl(2, 8, 5, 6), F4, (4, 4), (1, 1), True),
+    ("down4", _cl(2, 8, 9, 9), F4, (1, 1), (4, 4), False),
+    ("up 4, down 2 per axis", _cl(2, 8, 9, 9), F4, (4, 1), (1, 2), True),
+    ("up8", _cl(2, 8, 5, 6), F4, (8, 8), (1, 1), False),
+    ("24 taps 1-D", _cl(2, 8, 9, 9), torch.ones(24), (4, 4), (1, 1), True),
+    ("25 taps 1-D", _cl(2, 8, 9, 9), torch.ones(25), (4, 4), (1, 1), False),
+    ("8x8 2-D, up 4", _cl(2, 8, 9, 9), torch.ones(8, 8), (4, 4), (1, 1), True),
     ("no filter", _cl(2, 8, 5, 6), None, (1, 1), (1, 1), True),
     ("f64 filter", _cl(2, 8, 5, 6), F4.double(), (2, 2), (1, 1), False),
     ("strided filter", _cl(2, 8, 5, 6), torch.ones(4, 8)[:, ::2], (2, 2), (1, 1), False),
@@ -322,6 +339,46 @@ def test_kernel_envelope(name, x, f, up, down, inside):
     refusal = _envelope(x, f, up, down)
     assert (refusal is None) is inside
     assert inside or (isinstance(refusal, str) and refusal)
+
+
+BEYOND_CASES = [      # (id, taps, normalize, kwargs): up 4, long 1-D filters
+    ("StyleGAN3's up 4", list(range(1, 25)), True,
+     dict(up=4, padding=(-6, -9, -6, -9), gain=16.0)),
+    ("StyleGAN3's up 2", list(range(1, 13)), True, dict(up=2, padding=(9, 8, 9, 8), gain=4.0)),
+    ("StyleGAN3's down 2", list(range(1, 13)), True, dict(down=2, padding=(1, -1, 2, -2))),
+    ("up 4 without a filter", None, False, dict(up=4, padding=(0, -1, 0, -1))),
+    ("up 4, 2-D filter", [[1, 2, 0, 1], [0, 1, 3, 1], [2, 1, 1, 0], [1, 0, 2, 1]], True,
+     dict(up=4, padding=(2, 1, 2, 2))),
+    ("StyleGAN3's up 4, pads off the cell", list(range(1, 25)), True,
+     dict(up=4, padding=(-5, -10, -7, -8), gain=16.0)),
+    ("8 taps 1-D, up 4", list(range(1, 9)), True, dict(up=4, padding=(4, 3, 4, 3), gain=16.0)),
+    ("12 taps, up and down 2", list(range(12, 0, -1)), True,
+     dict(up=2, down=2, padding=(3, 4, 2, 5))),
+    ("up 4 on one axis", list(range(1, 13)), True,
+     dict(up=(4, 1), down=(1, 2), padding=(5, 3, 2, 7))),
+    ("13 taps, flipped", list(range(1, 14)), False, dict(padding=6, flip_filter=True, gain=0.5)),
+]
+
+
+@pytest.mark.parametrize("name, taps, normalize, kw", BEYOND_CASES,
+                         ids=[c[0] for c in BEYOND_CASES])
+def test_upfirdn2d_beyond_the_polyphase_envelope(name, taps, normalize, kw):
+    """The calls that StyleGAN3 added to the kernels' envelope (up 4, 1-D
+    filters of 9-24 taps, negative pads): inside it, and on the CPU the
+    composition against the JAX package. On the card, tests/
+    test_torch_stylegan3.py holds the kernels to the composition."""
+    x = _rand((2, 20, 18, 4), seed=24)
+    jf, tf = _filter(taps, normalize=normalize, separable=True) if taps else (None, None)
+    xt = _nchw(x).contiguous(memory_format=torch.channels_last)
+    up, down = (resample._parse_scaling(kw.get(k, 1)) for k in ("up", "down"))
+    out_hw = resample._output_size(xt, *resample._filter_size(tf), up, down,
+                                   resample._parse_padding(kw["padding"]))
+    assert resample.envelope_refusal(xt, tf, up, down, out_hw) is None
+    want = jres.upfirdn2d(jnp.asarray(x), None if jf is None else jnp.asarray(jf), **kw)
+    got = resample.upfirdn2d(xt, tf, **kw)
+    assert got.shape == (2, 4, *out_hw)
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want), rtol=1e-5,
+                               atol=1e-5 * float(np.abs(np.asarray(want)).max()))
 
 
 @pytest.mark.parametrize("in_hw, out_hw", [((3, 5), (7, 4)), ((4, 4), (1, 6)),

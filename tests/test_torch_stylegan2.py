@@ -37,7 +37,7 @@ from benchmark.reference import stylegan2 as ref
 from pggan_tpu_torch import demo
 from pggan_tpu_torch.config import Config, STYLEGAN2_DEFAULTS, stylegan2_args
 from pggan_tpu_torch.models import stylegan2
-from pggan_tpu_torch.ops import basic, kernels, modulated
+from pggan_tpu_torch.ops import basic, kernels, modulated, resample
 from pggan_tpu_torch.utils import checkpoint as ckpt_lib
 
 CFG = dict(z_dim=32, w_dim=32, mapping_layers=2, mapping_lr_multiplier=0.01, resolution=32,
@@ -209,6 +209,44 @@ def test_a_1024_forward_counts_26_modconvs_and_25_kernel_epilogues(monkeypatch):
     assert {name for name, _ in routed[8:]} == {"modconv_epilogue"}
     assert [shape for _, shape in routed[8:10]] == [(1, 4, 4, 4), (1, 4, 8, 8)]
     assert all(n == 0 for n in kernels.launches.values())        # the CPU runs plain code
+
+
+def test_a_1024_forward_keeps_its_launches(monkeypatch):
+    """The kernels StyleGAN2 launched before StyleGAN3's envelope was added:
+    at config-f's layer count (1-4 channels), 26 modulated convs, 17 of them
+    one-pass; 25 bias-act launches; 16 upfirdn2d calls, each inside the
+    kernels' envelope and inside the polyphase one (up 2 and down 1 on both
+    axes, the 4-tap filter's 4x4 outer product): the calls that
+    `csrc/upfirdn2d.cu` sends to `upfirdn2d_up2_kernel` (phase 23 of
+    chip_smoke.py names them on the card), none beyond it."""
+    cfg = dict(CFG, z_dim=8, w_dim=8, resolution=1024, fmap_base=512, fmap_max=4,
+               mapping_layers=8, num_fp16_res=4)
+    G = _generator(cfg)
+    fir, routed = [], []
+    route = resample._upfirdn2d
+
+    def record(x, f, up, down, pads, flip, gain):
+        fir.append((up, down, tuple(f.shape), resample.envelope_refusal(
+            x, f, up, down, resample._output_size(x, *resample._filter_size(f), up, down,
+                                                  pads))))
+        return route(x, f, up, down, pads, flip, gain)
+
+    def counting(name):
+        inner = getattr(kernels, name)
+
+        def count(x, *args, **kwargs):
+            routed.append(name)
+            return inner(x, *args, **kwargs)
+        return count
+    monkeypatch.setattr(resample, "_upfirdn2d", record)
+    for name in ("bias_lrelu_gain", "modconv_epilogue"):
+        monkeypatch.setattr(kernels, name, counting(name))
+    modulated.reset_counts()
+    with torch.no_grad():
+        G(_latents(n=1, dim=8))
+    assert modulated.counts == {"modconv": 26, "fused_epilogue": 17}
+    assert len(routed) == 25
+    assert fir == [((2, 2), (1, 1), (4, 4), None)] * 16
 
 
 # ---------------------------------------------------------------------------
